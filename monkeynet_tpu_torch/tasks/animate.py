@@ -1,0 +1,163 @@
+"""Frame-batched inference: TransferEngine and Animator.
+
+Counterpart of monkeynet_tpu/tasks/animate.py. Every frame is independent
+given its keypoints, so the generator takes all driving frames of a chunk at
+once (the frame axis folds into the conv batch). Long videos run in chunks of
+`chunk` frames; a short tail is padded to a 16-frame bucket by repeating its
+last frame, as the JAX package does to bound its compiled program count, so
+both packages run the same batch shapes. Outputs stay on the device.
+
+`dtype=torch.bfloat16` runs the networks in bf16 (weights, batch-norm
+statistics and activations cast, as the JAX package casts its variables);
+keypoint math, the mask softmax and every sampling grid stay f32, and the
+outputs come back f32.
+"""
+
+from __future__ import annotations
+
+import copy
+from typing import Dict, Optional
+
+import torch
+
+from monkeynet_tpu_torch.utils.device import require_device
+
+
+def _bucket(n: int, chunk: int, granularity: int = 16) -> int:
+    """Frame-count bucket: a chunk shorter than `chunk` is padded to a
+    multiple of `granularity`."""
+    if n >= chunk:
+        return chunk
+    return min(chunk, -(-n // granularity) * granularity)
+
+
+def _pad_frames(x, total: int):
+    """Pad the frame axis (1) to `total` by repeating the last frame."""
+    n = x.shape[1]
+    if n == total:
+        return x
+    return torch.cat([x, x[:, -1:].expand(-1, total - n, *x.shape[2:])], dim=1)
+
+
+def _pad_kp(kp: Dict, total: int) -> Dict:
+    return {k: _pad_frames(v, total) for k, v in kp.items()}
+
+
+def _cat(parts, dim=1):
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
+
+
+def split_kp(kp_joined: Dict) -> Dict[str, Dict]:
+    """Frame 0 of a joined keypoint batch is the source; the rest drive."""
+    return {
+        "kp_driving": {k: v[:, 1:] for k, v in kp_joined.items()},
+        "kp_source": {k: v[:, :1] for k, v in kp_joined.items()},
+    }
+
+
+def _for_inference(model: torch.nn.Module, device, dtype) -> torch.nn.Module:
+    model = model.to(device).eval()
+    if dtype is not None:
+        model = copy.deepcopy(model).to(dtype)
+    return model
+
+
+class Animator:
+    """The generator over fixed-size chunks of driving keypoints."""
+
+    def __init__(self, generator, chunk: int = 128, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        self.device = require_device(device)
+        self.granularity = 16
+        self.chunk = -(-chunk // self.granularity) * self.granularity
+        self.dtype = dtype
+        self.generator = _for_inference(generator, self.device, dtype)
+
+    @torch.no_grad()
+    def __call__(self, source, kp_driving, kp_source) -> Dict[str, torch.Tensor]:
+        """source (B,1,H,W,C); kp dicts (B,D,...) and (B,1,...) ->
+        {'video_prediction', 'video_deformed'}, f32 on the device."""
+        dev = self.device
+        source = torch.as_tensor(source, device=dev)
+        if self.dtype is not None:
+            source = source.to(self.dtype)
+        kp_driving = {k: torch.as_tensor(v, device=dev).float() for k, v in kp_driving.items()}
+        kp_source = {k: torch.as_tensor(v, device=dev).float() for k, v in kp_source.items()}
+        d = kp_driving["mean"].shape[1]
+        outs = {"video_prediction": [], "video_deformed": []}
+        for start in range(0, d, self.chunk):
+            part = {k: v[:, start : start + self.chunk] for k, v in kp_driving.items()}
+            n_valid = part["mean"].shape[1]
+            part = _pad_kp(part, _bucket(n_valid, self.chunk, self.granularity))
+            out = self.generator(source, part, kp_source)
+            for k in outs:
+                outs[k].append(out[k][:, :n_valid].float())
+        return {k: _cat(v) for k, v in outs.items()}
+
+
+class TransferEngine:
+    """The whole transfer pipeline per frame chunk: driving-kp detection,
+    the relative move_location normalisation, and generation.
+
+    Covers the default normalisation (move_location / clip_mean, reference
+    transfer.py:42-50); convex-hull scale adaptation and covariance
+    adaptation are not ported yet.
+    """
+
+    def __init__(self, generator, kp_detector, chunk: int = 128,
+                 dtype: Optional[torch.dtype] = None, move_location: bool = True,
+                 clip_mean: bool = False, device="cuda"):
+        self.device = require_device(device)
+        self.granularity = 16
+        self.chunk = -(-chunk // self.granularity) * self.granularity
+        self.dtype = dtype
+        self.move_location = move_location
+        self.clip_mean = clip_mean
+        self.generator = _for_inference(generator, self.device, dtype)
+        self.kp_detector = _for_inference(kp_detector, self.device, dtype)
+
+    def _normalize(self, kp_chunk, kp_first, kp_source):
+        if not self.move_location:
+            return kp_chunk
+        out = dict(kp_chunk)
+        out["mean"] = kp_chunk["mean"] - kp_first["mean"] + kp_source["mean"]
+        if self.clip_mean:
+            out["mean"] = torch.clamp(out["mean"], -1.0, 1.0)
+        return out
+
+    @torch.no_grad()
+    def __call__(self, source, driving) -> Dict:
+        """source (B,1,H,W,C), driving (B,D,H,W,C) -> dict of f32 device
+        tensors {'video_prediction', 'video_deformed', 'kp_driving',
+        'kp_source', 'kp_norm'}."""
+        source = torch.as_tensor(source, device=self.device)
+        driving = torch.as_tensor(driving, device=self.device)
+        if self.dtype is not None:
+            source = source.to(self.dtype)
+        d = driving.shape[1]
+        preds, defs, kps, norms = [], [], [], []
+        kp_source = kp_first = None
+        for start in range(0, d, self.chunk):
+            frames = driving[:, start : start + self.chunk]
+            n_valid = frames.shape[1]
+            frames = _pad_frames(frames, _bucket(n_valid, self.chunk, self.granularity))
+            if self.dtype is not None:
+                frames = frames.to(self.dtype)
+            if kp_source is None:
+                kp_source = self.kp_detector(source)
+            kp_chunk = self.kp_detector(frames)
+            if kp_first is None:
+                kp_first = {k: v[:, :1] for k, v in kp_chunk.items()}
+            kp_norm = self._normalize(kp_chunk, kp_first, kp_source)
+            out = self.generator(source, kp_norm, kp_source)
+            preds.append(out["video_prediction"][:, :n_valid].float())
+            defs.append(out["video_deformed"][:, :n_valid].float())
+            kps.append({k: v[:, :n_valid] for k, v in kp_chunk.items()})
+            norms.append({k: v[:, :n_valid] for k, v in kp_norm.items()})
+        return {
+            "video_prediction": _cat(preds),
+            "video_deformed": _cat(defs),
+            "kp_driving": {k: _cat([o[k] for o in kps]) for k in kps[0]},
+            "kp_norm": {k: _cat([o[k] for o in norms]) for k in norms[0]},
+            "kp_source": kp_source,
+        }

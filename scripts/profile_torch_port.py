@@ -1,0 +1,135 @@
+#!/usr/bin/env python3
+"""Where the device time goes in the PyTorch port's taichi-64^2 transfer.
+
+    python3 scripts/profile_torch_port.py [--dtype bf16|f32] [--frames 256]
+
+Builds configs/taichi.yaml's generator and keypoint detector (random weights
+from a seed), runs TransferEngine once to warm up, then traces one more
+call with torch.profiler (CPU and CUDA activities). Prints JSON lines: the
+top kernels by device time, device time grouped by kind (convolution, the
+port's four kernels, elementwise, ...), and the device's busy share of the
+traced window. Needs one CUDA card; exits non-zero if the trace holds no
+device time.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import re
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+REPO = Path(__file__).resolve().parents[1]
+
+# kind -> pattern on the kernel's name; the first match wins
+KINDS = (
+    ("port_kernels", r"warp_fwd_kernel|combine_kernel|softargmax_kernel|heatmap_kernel"),
+    ("convolution", r"conv|xmma|fprop|implicit|cudnn|wgrad|dgrad|winograd|nhwc|nchw"),
+    ("matmul", r"gemm|cutlass|bmm|matmul"),
+    ("batch_norm_and_elementwise", r"elementwise|vectorized|unrolled|where|clamp|pow|exp"),
+    ("reduction", r"reduce|softmax|norm"),
+    ("copy_cat_index", r"copy|cat|index|gather|memcpy|memset|fill"),
+)
+
+
+def kind_of(name: str) -> str:
+    low = name.lower()
+    for kind, pattern in KINDS:
+        if re.search(pattern, low):
+            return kind
+    return "other"
+
+
+def union_us(intervals) -> float:
+    total, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            total += e - s
+            end = e
+        elif e > end:
+            total += e - end
+            end = e
+    return total
+
+
+def summarize(device_events, wall_us: float) -> dict:
+    """device_events: (name, start_us, end_us) of every device activity."""
+    by_name = defaultdict(lambda: [0.0, 0])
+    by_kind = defaultdict(float)
+    for name, s, e in device_events:
+        by_name[name][0] += e - s
+        by_name[name][1] += 1
+        by_kind[kind_of(name)] += e - s
+    total = sum(v[0] for v in by_name.values())
+    start = min(s for _, s, _ in device_events)
+    stop = max(e for _, _, e in device_events)
+    busy = union_us([(s, e) for _, s, e in device_events])
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    return {
+        "device_time_us": total,
+        "device_window_us": stop - start,
+        "busy_share_of_device_window": busy / (stop - start),
+        "host_wall_us": wall_us,
+        "busy_share_of_host_wall": busy / wall_us,
+        "by_kind_us": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
+        "by_kind_share": {k: v / total for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        "top_kernels": [{"name": n[:120], "us": v[0], "calls": v[1]} for n, v in top],
+    }
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
+    parser.add_argument("--frames", type=int, default=256)
+    parser.add_argument("--chunk", type=int, default=128)
+    args = parser.parse_args()
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    if not torch.cuda.is_available():
+        print("profile_torch_port: CUDA is not available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(REPO))
+    from monkeynet_tpu_torch.tasks.animate import TransferEngine
+    from monkeynet_tpu_torch.tasks.build import build_models
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dtype = torch.bfloat16 if args.dtype == "bf16" else None
+    config = load_config(str(REPO / "configs" / "taichi.yaml"))
+    generator, kp_detector = build_models(config, device="cuda", seed=0)
+    engine = TransferEngine(generator, kp_detector, chunk=args.chunk, dtype=dtype, device="cuda")
+    gen = torch.Generator().manual_seed(0)
+    source = torch.rand(1, 1, 64, 64, 3, generator=gen).cuda()
+    driving = torch.rand(1, args.frames, 64, 64, 3, generator=gen).cuda()
+    engine(source, driving)
+    torch.cuda.synchronize()
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        engine(source, driving)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    events = [
+        (e.name, e.time_range.start, e.time_range.end)
+        for e in prof.events()
+        if e.device_type == DeviceType.CUDA
+    ]
+    if not events:
+        print("profile_torch_port: the trace holds no device events", file=sys.stderr)
+        return 1
+    result = summarize(events, wall_us)
+    result.update({"dtype": args.dtype, "frames": args.frames, "chunk": args.chunk,
+                   "device": torch.cuda.get_device_name(0)})
+    print(json.dumps(result, indent=1))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
