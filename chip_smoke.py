@@ -5,14 +5,23 @@
 
 Phases, each of which raises on failure:
   1. build every CUDA kernel from monkeynet_tpu_torch/csrc/ (nvcc, sm_90a);
-  2. per kernel, at the shapes of the taichi-64^2 transfer (chunk of 128
-     frames): the kernel against its plain PyTorch version on the card, with
-     times for the kernel, the plain version and, for the warp, F.grid_sample;
-  3. slice parity: a 4-frame transfer at taichi width through the kernels on
-     the card against the plain versions on the CPU, from one state_dict;
-  4. the main path: TransferEngine on configs/taichi.yaml's model at 64^2,
-     256 driving frames in chunks of 128, in bf16 and in f32, with every
-     kernel's launch count checked against the count the path implies.
+  2. per kernel, the kernel against its plain PyTorch version on the card,
+     with times for the kernel, the plain version and, for the warp,
+     F.grid_sample and its backward: the four forward kernels at the shapes
+     of the taichi-64^2 transfer (chunk of 128 frames); the warp's forward,
+     d_src and d_grid kernels at the seven warps of the taichi-64^2 train
+     step (batch 32), random and identity (integer-coordinate) grids, f32 and bf16; the
+     combine's closed-form backward against autograd;
+  3. slice parity, kernels on the card against the plain versions on the
+     CPU from one state_dict: a 4-frame transfer at taichi width, and one
+     train step at taichi width and batch 2 (metrics, the gradients of the
+     three networks, the updated batch-norm statistics), held to the step's
+     own f32 noise floor, which is measured beside it;
+  4. the main paths, with every kernel's launch count checked against the
+     count the path implies: TransferEngine on configs/taichi.yaml's model
+     at 64^2, 256 driving frames in chunks of 128, in bf16 and in f32; and
+     Trainer on the same config at batch 32 with Adam, 3 warm-up steps and
+     10 timed ones, in bf16 (the config's setting) and in f32.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
@@ -33,6 +42,17 @@ CHUNK = 128
 N_FRAMES = 256
 HW = 64
 SEED = 0
+TRAIN_BATCH = 32
+TRAIN_WARMUP_STEPS = 3
+TRAIN_TIMED_STEPS = 10
+# (channels, size) of the seven warps of one train step: the six encoder
+# skips of the taichi model (the first is the source frame itself) and the
+# source frame once more for video_deformed
+WARP_SHAPES = ((3, 64), (64, 32), (128, 16), (256, 8), (512, 4), (1024, 2), (3, 64))
+# Which of them a train step runs backward: video_deformed (the last) enters
+# no loss in taichi.yaml, and the raw source frame (the first) needs no d_src.
+DGRID_IN_STEP = (True, True, True, True, True, True, False)
+DSRC_IN_STEP = (False, True, True, True, True, True, False)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
@@ -124,7 +144,7 @@ def _warp_cases(device, gen):
     from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
 
     cases = []
-    for C, h in ((3, 64), (64, 32), (128, 16), (256, 8), (512, 4), (1024, 2), (3, 64)):
+    for C, h in WARP_SHAPES:
         src = torch.randn(1, h, h, C, generator=gen).to(device)
         ident = make_coordinate_grid((h, h))[None, None].expand(1, CHUNK, h, h, 2)
         grid = ident + 0.1 * torch.randn(1, CHUNK, h, h, 2, generator=gen)
@@ -145,8 +165,8 @@ def kernel_phase(device) -> dict:
     # warp: f32 and bf16, summed over the seven calls of one chunk
     for dtype, tol_of in ((torch.float32, lambda ref: 1e-5),
                           (torch.bfloat16, lambda ref: 2.0**-8 * ref.abs().max().item())):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bytes": 0.0, "flops": 0.0,
-               "err": 0.0}
+        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0,
+               "library_ms": 0.0 if dtype == torch.float32 else None}
         for src, grid in _warp_cases(device, gen):
             src = src.to(dtype)
             B, H, W, C = src.shape
@@ -243,6 +263,182 @@ def kernel_phase(device) -> dict:
     return summary
 
 
+def _grid_off_integers(B, h, gen, margin=0.05):
+    """A (B, h, h, 2) grid over [-1.1, 1.1] (some samples outside) whose pixel
+    coordinates stay `margin` away from every integer, so that every way of
+    forming the coordinate picks the same corner."""
+    import torch
+
+    px = (2.2 * torch.rand(B, h, h, 2, generator=gen) - 0.1) * (h - 1) / 2.0
+    frac = (px - torch.floor(px)).clamp(margin, 1.0 - margin)
+    return ((torch.floor(px) + frac) / (0.5 * (h - 1)) - 1.0).contiguous()
+
+
+def warp_train_phase(device) -> dict:
+    """The three warp kernels at the seven warps of one taichi-64^2 train
+    step (batch 32, one driving frame), f32 and bf16, each against the plain
+    version (grid_sample and its autograd, in f32 on the same inputs) on a
+    random grid and on the identity grid. All three are checked and timed at
+    all seven shapes; the summed times, bytes and operations cover the
+    launches of one step (7 forward, 5 d_src, 6 d_grid)."""
+    import torch
+    import torch.nn.functional as F
+
+    from monkeynet_tpu_torch.ops.cuda import warp
+    from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
+
+    gen = torch.Generator().manual_seed(SEED + 10)
+    B = TRAIN_BATCH
+    names = ("warp_train", "warp_dsrc", "warp_dgrid")
+    summary = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        es = 2 if bf16 else 4
+        tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None if bf16 else 0.0,
+                   "bytes": 0.0, "flops": 0.0, "err": 0.0} for n in names}
+
+        def tol_of(ref, rounded=False):
+            # f32 results: sums of up to 4 * 1024 terms in another order
+            # (and, for d_src, atomics in no fixed order); results rounded to
+            # bf16 (the bf16 forward and d_src; d_grid is always f32): 2^-8
+            scale = max(1.0, ref.abs().max().item())
+            return (2.0**-8 if rounded else 2e-5) * scale
+
+        for (C, h), dsrc_in_step, dgrid_in_step in zip(WARP_SHAPES, DSRC_IN_STEP, DGRID_IN_STEP):
+            src = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
+            dout = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
+            grids = {
+                "random": _grid_off_integers(B, h, gen).to(device),
+                # pixel coordinates on, or within an ulp of, the integers: the
+                # kernels must pick the corners the plain version picks, and
+                # d_grid must be its right difference
+                "identity": make_coordinate_grid((h, h))[None].expand(B, h, h, 2)
+                .contiguous().to(device),
+            }
+            errs = {}
+            for kind, grid in grids.items():
+                got = {
+                    "warp_train": warp.warp(src, grid),
+                    "warp_dsrc": warp.warp_dsrc(grid, dout, tuple(src.shape)),
+                    "warp_dgrid": warp.warp_dgrid(src, grid, dout),
+                }
+                ref = {
+                    "warp_train": warp.grid_sample(src.float(), grid),
+                    "warp_dsrc": warp.warp_dsrc_plain(grid, dout.float(), tuple(src.shape)),
+                    "warp_dgrid": warp.warp_dgrid_plain(src.float(), grid, dout.float()),
+                }
+                torch.cuda.synchronize()
+                for n in names:
+                    err = max_err(got[n], ref[n])
+                    tol = tol_of(ref[n], rounded=bf16 and n != "warp_dgrid")
+                    check(f"{n} {dtype} C={C} {kind} grid", err, tol)
+                    errs[f"{n}.{kind}"] = err
+                    tot[n]["err"] = max(tot[n]["err"], err)
+            grid = grids["random"]
+            shape = tuple(src.shape)
+            row = {"kernel": "warp fwd/d_src/d_grid", "dtype": str(dtype), "shape": list(shape),
+                   "max_abs_err": errs,
+                   "fwd_ms": time_ms(lambda: warp.warp(src, grid)),
+                   "dsrc_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape)),
+                   "dgrid_ms": time_ms(lambda: warp.warp_dgrid(src, grid, dout)),
+                   "fwd_plain_ms": time_ms(lambda: warp.grid_sample(src, grid)),
+                   "dsrc_plain_ms": time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape)),
+                   "dgrid_plain_ms": time_ms(lambda: warp.warp_dgrid_plain(src, grid, dout)),
+                   "library_fwd_ms": None, "library_bwd_ms": None}
+            if not bf16:
+                # F.grid_sample's backward gives both gradients in one call; its
+                # values are compared only on the grid that avoids integers
+                nchw = src.permute(0, 3, 1, 2)
+                d_nchw = dout.permute(0, 3, 1, 2)
+
+                def library(image, lgrid):
+                    return F.grid_sample(image, lgrid, align_corners=True, padding_mode="zeros")
+
+                def library_grads():
+                    # leaves made here, so a captured replay owns its whole graph
+                    leaves = (nchw.detach().requires_grad_(), grid.detach().requires_grad_())
+                    return torch.autograd.grad(library(*leaves), leaves, d_nchw)
+
+                lib_src, lib_grid = library_grads()
+                ref_src = warp.warp_dsrc_plain(grid, dout, shape)
+                ref_grid = warp.warp_dgrid_plain(src, grid, dout)
+                row["library_err"] = {
+                    "d_src": max_err(lib_src.permute(0, 2, 3, 1), ref_src),
+                    "d_grid": max_err(lib_grid, ref_grid),
+                }
+                check(f"F.grid_sample d_src C={C}", row["library_err"]["d_src"], tol_of(ref_src))
+                check(f"F.grid_sample d_grid C={C}", row["library_err"]["d_grid"],
+                      10 * tol_of(ref_grid))
+                row["library_fwd_ms"] = time_ms(lambda: library(nchw, grid))
+                # the backward alone cannot be replayed from a graph recorded
+                # outside the capture: time forward + backward, less the forward
+                row["library_bwd_ms"] = time_ms(library_grads) - row["library_fwd_ms"]
+            log(row)
+            n_pts = B * h * h
+            plane = B * h * h * C
+            work = {
+                "warp_train": (plane * es + n_pts * 8 + n_pts * C * es, n_pts * (C * 8 + 20)),
+                # grid and dout read once; the f32 buffer zero-filled, the
+                # gradient written once in dout's dtype
+                "warp_dsrc": (n_pts * 8 + n_pts * C * es + plane * 4 + plane * es,
+                              n_pts * (C * 8 + 20)),
+                "warp_dgrid": (plane * es + n_pts * 8 + n_pts * C * es + n_pts * 8,
+                               n_pts * (C * 14 + 24)),
+            }
+            in_step = {"warp_train": True, "warp_dsrc": dsrc_in_step, "warp_dgrid": dgrid_in_step}
+            for n, key in zip(names, ("fwd", "dsrc", "dgrid")):
+                if not in_step[n]:
+                    continue
+                tot[n]["ms"] += row[f"{key}_ms"]
+                tot[n]["plain_ms"] += row[f"{key}_plain_ms"]
+                tot[n]["bytes"] += work[n][0]
+                tot[n]["flops"] += work[n][1]
+                if not bf16:
+                    tot[n]["library_ms"] += row["library_fwd_ms" if key == "fwd"
+                                                else "library_bwd_ms"]
+        for n in names:
+            summary[n + ("_bf16" if bf16 else "")] = tot[n]
+    return summary
+
+
+def combine_backward_phase(device) -> dict:
+    """The combine's closed-form backward (plain PyTorch in both packages)
+    against autograd of combine_plain on the card, at the train step's shape."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import combine
+
+    gen = torch.Generator().manual_seed(SEED + 11)
+    K1 = 11
+    logits = (2.0 * torch.randn(TRAIN_BATCH, 1, HW, HW, K1, generator=gen)).to(device)
+    diff = (0.1 * torch.randn(TRAIN_BATCH, 1, K1, 2, generator=gen)).to(device)
+    corr = (0.01 * torch.randn(TRAIN_BATCH, 1, HW, HW, 2, generator=gen)).to(device)
+    g = torch.randn(TRAIN_BATCH, 1, HW, HW, 2, generator=gen).to(device)
+
+    def grads(fn):
+        # leaves made here, so a captured replay owns its whole graph
+        leaves = [t.detach().requires_grad_() for t in (logits, diff, corr)]
+        return torch.autograd.grad(fn(*leaves), leaves, g)
+
+    # through CombineFunction: the kernel forward, the closed-form backward
+    got = grads(combine.combine)
+    want = grads(combine.combine_plain)
+    # ddiff sums 4096 pixels per entry: f32 noise of ~1e-5 on sums of ~50
+    tols = {"dlogits": 1e-5, "ddiff": 1e-3, "dcorr": 0.0}
+    errs = {}
+    for (name, tol), a, b in zip(tols.items(), got, want):
+        errs[name] = max_err(a, b)
+        check(f"combine backward {name}", errs[name], tol)
+    result = {
+        "phase": "combine_backward", "shape": list(logits.shape), "max_abs_err": errs,
+        "tol": tols,
+        "closed_form_ms": time_ms(lambda: combine.combine_backward(logits, diff, g)),
+        "autograd_fwd_bwd_ms": time_ms(lambda: grads(combine.combine_plain)),
+    }
+    log(result)
+    return result
+
+
 # ---- phase 3 ---------------------------------------------------------------
 
 def _perturb_for_parity(generator, seed: int) -> None:
@@ -312,8 +508,9 @@ def slice_parity(config, device="cuda") -> dict:
 def _counters():
     from monkeynet_tpu_torch.ops.cuda import combine, heatmap, softargmax, warp
 
-    return {"warp": warp.warp, "combine": combine.combine,
-            "softargmax": softargmax.softargmax_stats, "heatmap": heatmap.heatmap}
+    return {"warp": warp.warp, "warp_dsrc": warp.warp_dsrc, "warp_dgrid": warp.warp_dgrid,
+            "combine": combine.combine, "softargmax": softargmax.softargmax_stats,
+            "heatmap": heatmap.heatmap}
 
 
 def expected_launches(n_frames: int, chunk: int) -> dict:
@@ -321,8 +518,8 @@ def expected_launches(n_frames: int, chunk: int) -> dict:
     four heatmaps (driving and source in two embeddings), one soft-argmax;
     plus one soft-argmax for the source frame on the first chunk."""
     chunks = -(-n_frames // chunk)
-    return {"warp": 7 * chunks, "combine": chunks, "heatmap": 4 * chunks,
-            "softargmax": chunks + 1}
+    return {"warp": 7 * chunks, "warp_dsrc": 0, "warp_dgrid": 0, "combine": chunks,
+            "heatmap": 4 * chunks, "softargmax": chunks + 1}
 
 
 def main_path(config, dtype, device="cuda") -> dict:
@@ -381,24 +578,218 @@ def main_path(config, dtype, device="cuda") -> dict:
     return result
 
 
-def kernels_line(summary: dict, launches: dict) -> dict:
+# ---- the train step --------------------------------------------------------
+
+def _sgd(params):
+    import torch
+
+    return torch.optim.SGD(params, lr=1e-3)
+
+
+PARITY_NOISE = 1e-6  # relative; a few f32 ulps, the gap between two conv summation orders
+PARITY_FLOORS = 5  # the card may differ from the CPU by this many noise floors
+
+
+def _grad_groups(trainer) -> dict:
+    """Gradients of a Trainer's three networks, concatenated per top-level
+    sub-module ('generator.appearance_encoder', 'kp_detector.predictor', ...)."""
+    import torch
+
+    groups = {}
+    for name, model in trainer.models.items():
+        for key, p in model.named_parameters():
+            if p.grad is None:
+                raise AssertionError(f"train parity: no gradient for {name}.{key}")
+            groups.setdefault(f"{name}.{key.split('.')[0]}", []).append(p.grad.flatten().cpu())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def _buffers(trainer) -> dict:
+    return {f"{name}.{key}": b.detach().cpu()
+            for name, model in trainer.models.items()
+            for key, b in model.named_buffers() if not key.endswith("num_batches_tracked")}
+
+
+def train_parity(config, device="cuda") -> dict:
+    """One SGD step at taichi width, batch 2, f32: kernels on the card against
+    the plain versions on the CPU, from one state_dict.
+
+    At this width the step amplifies rounding noise: a few f32 ulps on the
+    weights move a gradient tensor by ~1e-2 of its size (thirty 1024-wide
+    layers with batch statistics, and a temperature-0.1 softmax in the kp
+    detector). So the card is not held to a fixed tolerance but to the
+    step's own noise floor, measured in the same run: the CPU step repeated
+    with every weight multiplied by 1 + PARITY_NOISE * N(0, 1). Per
+    sub-module, the card's gradient must lie within PARITY_FLOORS of the CPU's (a
+    wrong kernel gradient is off by the gradient's own size, ~100 floors).
+    The kernels' own tight comparisons are phase 2.
+    """
+    import copy
+
+    import torch
+
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import Trainer, metric_names
+
+    train_params = dict(config["train_params"], compute_dtype=None)
+    models = build_train_models(config, device="cpu", seed=SEED)
+    noisy = copy.deepcopy(models)
+    gen = torch.Generator().manual_seed(SEED + 4)
+    with torch.no_grad():
+        for model in noisy.values():
+            for p in model.parameters():
+                p.mul_(1.0 + PARITY_NOISE * torch.randn(p.shape, generator=gen))
+    batch = {"source": torch.rand(2, 1, HW, HW, 3, generator=gen),
+             "video": torch.rand(2, 1, HW, HW, 3, generator=gen)}
+    runs = {}
+    for label, start, where in (("cpu", models, "cpu"), ("noisy_cpu", noisy, "cpu"),
+                                ("card", models, device)):
+        trainer = Trainer(copy.deepcopy(start), train_params, device=where,
+                          optimizer_factory=_sgd)
+        out = trainer.step(batch)
+        torch.cuda.synchronize()
+        runs[label] = (_grad_groups(trainer), _buffers(trainer), out["metrics"].cpu())
+    grads, buffers, metrics = runs["cpu"]
+
+    def gaps(label):
+        g, b, m = runs[label]
+        return {
+            "grad_rel_l2": {k: ((g[k] - grads[k]).norm() / grads[k].norm()).item()
+                            for k in grads},
+            "bn_stats_max_abs": max(max_err(b[k], buffers[k]) for k in buffers),
+            "metrics_max_rel": ((m - metrics).abs() / metrics.abs().clamp_min(1e-6)).max().item(),
+        }
+
+    card, floor = gaps("card"), gaps("noisy_cpu")
+    # least floors: one noise draw can underestimate a floor (the
+    # discriminator's read 1.1e-4 at this noise and 7.3e-4 at three times it)
+    least = {"grad_rel_l2": 1e-3, "bn_stats_max_abs": 1e-5, "metrics_max_rel": 1e-4}
+    result = {"phase": "train_parity", "batch": 2, "metric_names": metric_names(train_params),
+              "metrics_cpu": metrics.tolist(), "metrics_card": runs["card"][2].tolist(),
+              "card_vs_cpu": card, "noise_floor": floor, "noise": PARITY_NOISE,
+              "tol": f"{PARITY_FLOORS} x max(noise floor, least)", "least": least}
+    log(result)
+    for group, err in card["grad_rel_l2"].items():
+        check(f"train parity grad {group}", err,
+              PARITY_FLOORS * max(floor["grad_rel_l2"][group], least["grad_rel_l2"]))
+    for key in ("bn_stats_max_abs", "metrics_max_rel"):
+        check(f"train parity {key}", card[key], PARITY_FLOORS * max(floor[key], least[key]))
+    return result
+
+
+# Per train step: seven warps forward; video_deformed enters no loss in
+# taichi.yaml, so six warps run backward, all six for the grid and five for
+# the source (the raw source frame needs no gradient); one combine; the
+# softargmax and heatmap kernels are forward-only and stay out of training.
+TRAIN_STEP_LAUNCHES = {"warp": 7, "warp_dsrc": 5, "warp_dgrid": 6, "combine": 1,
+                       "softargmax": 0, "heatmap": 0}
+
+
+def train_path(config, compute_dtype, device="cuda") -> dict:
+    """Trainer on configs/taichi.yaml at 64^2, batch 32, Adam, uint8 batches
+    made on the card from a seed."""
+    import torch
+
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import MODEL_NAMES, Trainer, metric_names
+
+    train_params = dict(config["train_params"], compute_dtype=compute_dtype)
+    models = build_train_models(config, device=device, seed=SEED)
+    trainer = Trainer(models, train_params, device=device, steps_per_epoch=100)
+    gen = torch.Generator(device=device).manual_seed(SEED + 5)
+    n_steps = TRAIN_WARMUP_STEPS + TRAIN_TIMED_STEPS
+    batches = [
+        {k: torch.randint(0, 256, (TRAIN_BATCH, 1, HW, HW, 3), dtype=torch.uint8,
+                          device=device, generator=gen) for k in ("source", "video")}
+        for _ in range(n_steps)
+    ]
+    before = {name: [p.detach().clone() for p in trainer.models[name].parameters()]
+              for name in MODEL_NAMES}
+    for batch in batches[:TRAIN_WARMUP_STEPS]:  # cuDNN plans, allocator, Adam state
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    counters = _counters()
+    for fn in counters.values():
+        fn.launches = 0
+    times, metrics = [], []
+    for batch in batches[TRAIN_WARMUP_STEPS:]:
+        t0 = time.perf_counter()
+        out = trainer.step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        metrics.append(out["metrics"])
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    want = {k: v * TRAIN_TIMED_STEPS for k, v in TRAIN_STEP_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"train launch counts {launches} != expected {want}")
+    metrics = torch.stack(metrics).float()
+    if not torch.isfinite(metrics).all():
+        raise AssertionError(f"non-finite train metrics: {metrics.tolist()}")
+    if tuple(out["video_prediction"].shape) != (TRAIN_BATCH, 1, HW, HW, 3) \
+            or not torch.isfinite(out["video_prediction"].float()).all():
+        raise AssertionError("bad video_prediction from the train step")
+    moved = {}
+    for name in MODEL_NAMES:
+        params = list(trainer.models[name].parameters())
+        if any(p.dtype != torch.float32 or not torch.isfinite(p).all() for p in params):
+            raise AssertionError(f"{name}: master parameters must stay finite f32")
+        moved[name] = sum((p.detach() - b).abs().sum().item()
+                          for p, b in zip(params, before[name]))
+        if not moved[name] > 0:
+            raise AssertionError(f"{name}: parameters did not move")
+    ordered = sorted(times)
+    median = 0.5 * (ordered[len(ordered) // 2 - 1] + ordered[len(ordered) // 2])
+    result = {
+        "phase": "train_path", "compute_dtype": compute_dtype or "float32",
+        "batch": TRAIN_BATCH, "steps": TRAIN_TIMED_STEPS, "warmup_steps": TRAIN_WARMUP_STEPS,
+        "launches": launches, "expected_launches": want,
+        "metric_names": metric_names(train_params),
+        "first_metrics": metrics[0].tolist(), "last_metrics": metrics[-1].tolist(),
+        "step_s": times, "steps_per_s_median": 1.0 / median,
+        "steps_per_s_best": 1.0 / ordered[0], "steps_per_s_worst": 1.0 / ordered[-1],
+        "sum_abs_param_change": moved, "peak_mem_gb": peak / 1e9,
+    }
+    log(result)
+    return result
+
+
+def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -> dict:
+    """One row per kernel. `launches` is the count of the path that runs the
+    kernel: the 256-frame transfer for the four forward kernels, the ten
+    timed train steps for d_src and d_grid; both paths' counts are also given
+    under their own names. Times are per transfer chunk (forward kernels)
+    and per train step (d_src, d_grid; the warp's `train` entry)."""
     from monkeynet_tpu_torch.ops.cuda import combine, heatmap, softargmax, warp
 
-    modules = {"warp": warp, "combine": combine, "softargmax": softargmax, "heatmap": heatmap}
-    rows = []
-    for name, mod in modules.items():
-        s = summary[name]
+    def numbers(s):
         b_ms, b_by = bound_ms(s["bytes"], s["flops"])
-        row = {
-            "name": name, "route": "cuda", "source": mod.SOURCE, "replaces": mod.REPLACES,
-            "launches": launches[name], "max_abs_err": s["err"], "ms": s["ms"],
-            "plain_ms": s["plain_ms"], "bound_ms": b_ms, "bound_by": b_by,
-            "library_ms": s["library_ms"],
-        }
+        return {"max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+                "bound_ms": b_ms, "bound_by": b_by, "library_ms": s["library_ms"]}
+
+    specs = (
+        ("warp", warp.SOURCE, warp.REPLACES, "warp", transfer_launches),
+        ("warp_dsrc", warp.DSRC_SOURCE, warp.DSRC_REPLACES, "warp_dsrc", train_launches),
+        ("warp_dgrid", warp.DGRID_SOURCE, warp.DGRID_REPLACES, "warp_dgrid", train_launches),
+        ("combine", combine.SOURCE, combine.REPLACES, "combine", transfer_launches),
+        ("softargmax", softargmax.SOURCE, softargmax.REPLACES, "softargmax", transfer_launches),
+        ("heatmap", heatmap.SOURCE, heatmap.REPLACES, "heatmap", transfer_launches),
+    )
+    rows = []
+    for name, source, replaces, key, launches in specs:
+        row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+               "launches": launches[name], **numbers(summary[key]),
+               "transfer_launches": transfer_launches[name],
+               "train_launches": train_launches[name]}
+        if f"{key}_bf16" in summary:
+            row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
-            bf = summary["warp_bf16"]
-            row["bf16"] = {"ms": bf["ms"], "plain_ms": bf["plain_ms"], "max_abs_err": bf["err"],
-                           "bound_ms": bound_ms(bf["bytes"], bf["flops"])[0]}
+            row["train"] = {"f32": numbers(summary["warp_train"]),
+                            "bf16": numbers(summary["warp_train_bf16"])}
+        if name in ("warp_dsrc", "warp_dgrid"):
+            row["library"] = "F.grid_sample backward, which gives both gradients in one call"
         rows.append(row)
     return {"kernels": rows}
 
@@ -430,11 +821,16 @@ def main() -> int:
     config = load_config(str(REPO / "configs" / "taichi.yaml"))
     build_kernels()
     summary = kernel_phase("cuda")
+    summary.update(warp_train_phase("cuda"))
+    combine_backward_phase("cuda")
     slice_parity(config)
+    train_parity(config)
     runs = [main_path(config, torch.bfloat16), main_path(config, torch.float32)]
-    # every run must have launched every kernel; report the bf16 run's counts
-    launches = runs[0]["launches"]
-    print(json.dumps(kernels_line(summary, launches)), flush=True)
+    train_runs = [train_path(config, "bfloat16"), train_path(config, None)]
+    # every run of a path launched the same counts (checked above); report the
+    # bf16 runs' counts, the setting both the benchmark and the config use
+    print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"])),
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,5 @@
-// Helpers shared by the port's kernels: element conversion and block-wide
-// reductions. Every exported launcher returns cudaGetLastError() so the
+// Helpers shared by the port's kernels: element conversion, the bilinear
+// taps of the three warp kernels, and block-wide reductions. Every exported launcher returns cudaGetLastError() so the
 // Python wrapper can raise on a refused launch.
 #pragma once
 
@@ -18,6 +18,41 @@ template <typename T> __device__ __forceinline__ T from_float(float v);
 template <> __device__ __forceinline__ float from_float<float>(float v) { return v; }
 template <> __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
   return __float2bfloat16(v);
+}
+
+// V consecutive channels, loaded and stored as one aligned vector.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Pack {
+  T v[V];
+};
+
+// Bilinear sampling of an (H, W) plane at grid coordinates (gx, gy) in
+// [-1, 1], align_corners=True: the top-left corner (x0, y0) as floats and the
+// 1-D weights of the two columns and the two rows. The warp forward and both
+// backward kernels, and the plain PyTorch version, form the pixel coordinate
+// with this one expression, (g + 1) * 0.5 * (n - 1) evaluated left to right:
+// any other order can flip floor() at a near-integer coordinate.
+struct Taps {
+  float x0, y0, wx0, wx1, wy0, wy1;
+};
+
+__device__ __forceinline__ Taps bilinear_taps(float gx, float gy, int H, int W) {
+  const float x = (gx + 1.f) * 0.5f * (float)(W - 1);
+  const float y = (gy + 1.f) * 0.5f * (float)(H - 1);
+  Taps t;
+  t.x0 = floorf(x);
+  t.y0 = floorf(y);
+  t.wx1 = x - t.x0;
+  t.wx0 = 1.f - t.wx1;
+  t.wy1 = y - t.y0;
+  t.wy0 = 1.f - t.wy1;
+  return t;
+}
+
+// A corner outside the source contributes zero (zeros padding). The test is
+// on the float coordinate, so a sample in (-1, 0) keeps its in-range corner.
+__device__ __forceinline__ bool corner_in_range(float x, float y, int H, int W) {
+  return x >= 0.f && x <= (float)(W - 1) && y >= 0.f && y <= (float)(H - 1);
 }
 
 __device__ __forceinline__ float warp_sum(float v) {

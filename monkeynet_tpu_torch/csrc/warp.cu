@@ -18,11 +18,6 @@
 namespace {
 
 template <typename T, int V>
-struct alignas(sizeof(T) * V) Pack {
-  T v[V];
-};
-
-template <typename T, int V>
 __global__ void warp_fwd_kernel(const T* __restrict__ src, const float* __restrict__ grid,
                                 T* __restrict__ out, int H, int W, int C, long long N,
                                 long long total) {
@@ -33,13 +28,8 @@ __global__ void warp_fwd_kernel(const T* __restrict__ src, const float* __restri
   const long long bn = i / CV;  // b * N + n
   const long long b = bn / N;
 
-  const float gx = grid[2 * bn], gy = grid[2 * bn + 1];
-  const float x = (gx + 1.f) * 0.5f * (float)(W - 1);
-  const float y = (gy + 1.f) * 0.5f * (float)(H - 1);
-  const float x0 = floorf(x), y0 = floorf(y);
-  const float x1 = x0 + 1.f, y1 = y0 + 1.f;
-  const float wx1 = x - x0, wx0 = 1.f - wx1;
-  const float wy1 = y - y0, wy0 = 1.f - wy1;
+  const Taps tp = bilinear_taps(grid[2 * bn], grid[2 * bn + 1], H, W);
+  const float x0 = tp.x0, y0 = tp.y0, x1 = x0 + 1.f, y1 = y0 + 1.f;
 
   const T* base = src + b * (long long)H * W * C + (long long)cv * V;
   float acc[V];
@@ -48,13 +38,10 @@ __global__ void warp_fwd_kernel(const T* __restrict__ src, const float* __restri
 
   const float xs[4] = {x0, x1, x0, x1};
   const float ys[4] = {y0, y0, y1, y1};
-  const float ws[4] = {wx0 * wy0, wx1 * wy0, wx0 * wy1, wx1 * wy1};
+  const float ws[4] = {tp.wx0 * tp.wy0, tp.wx1 * tp.wy0, tp.wx0 * tp.wy1, tp.wx1 * tp.wy1};
 #pragma unroll
   for (int t = 0; t < 4; ++t) {
-    // A corner outside the source contributes zero (zeros padding); the
-    // test is on the float coordinate, so samples in (-1, 0) keep their
-    // in-range corner exactly as grid_sample does.
-    if (xs[t] >= 0.f && xs[t] <= (float)(W - 1) && ys[t] >= 0.f && ys[t] <= (float)(H - 1)) {
+    if (corner_in_range(xs[t], ys[t], H, W)) {
       const long long pix = (long long)ys[t] * W + (long long)xs[t];
       const Pack<T, V> p = *reinterpret_cast<const Pack<T, V>*>(base + pix * C);
 #pragma unroll

@@ -81,8 +81,9 @@ class SyncBatchNorm(nn.Module):
 
     Eval normalises with the running statistics. Train mode computes the
     batch's statistics in f32 (biased variance to normalise, unbiased for the
-    running estimate, torch momentum) on this process only; the
-    cross-replica reduction comes with the train slice.
+    running estimate, torch momentum) on this process only, and gradients
+    flow through the batch mean and variance as in the JAX package; the
+    cross-process reduction comes with data parallelism.
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -119,6 +120,30 @@ class SyncBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         inv = torch.rsqrt(var + self.eps)
         return (x - mean.to(x.dtype)) * (inv * self.weight).to(x.dtype) + self.bias.to(x.dtype)
+
+
+class InstanceNorm(nn.Module):
+    """Per-sample, per-channel normalisation over (D, H, W) of a
+    (B, D, H, W, C) video, affine: biased variance, eps 1e-5, no running
+    statistics, computed in the input's dtype (InstanceNorm3d(affine=True)
+    as the discriminator uses it)."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        mean = x.mean(dim=(1, 2, 3), keepdim=True)
+        centred = x - mean
+        var = (centred * centred).mean(dim=(1, 2, 3), keepdim=True)
+        return centred * torch.rsqrt(var + self.eps) * self.weight + self.bias
 
 
 def avg_pool_2x2(x):
@@ -266,6 +291,6 @@ class Hourglass(nn.Module):
 def init_parameters(model: nn.Module, generator: torch.Generator) -> nn.Module:
     """Initialise every block of `model` from `generator`, in module order."""
     for module in model.modules():
-        if isinstance(module, (Conv3D, SyncBatchNorm)):
+        if isinstance(module, (Conv3D, SyncBatchNorm, InstanceNorm)):
             module.reset_parameters(generator)
     return model

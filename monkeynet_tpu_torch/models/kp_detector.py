@@ -2,8 +2,12 @@
 
 Counterpart of monkeynet_tpu/models/kp_detector.py: optional nearest
 pre-downscale, hourglass -> per-kp heatmap logits, temperature softmax and
-soft-argmax to the mean and covariance (clipped), f32. On a CUDA tensor the
-softmax and soft-argmax run in the softargmax kernel.
+soft-argmax to the mean and covariance (clipped), f32.
+
+The module's mode picks the soft-argmax, as the JAX package's `train` flag
+does: in eval mode it is the softargmax kernel (on a CUDA tensor), which is
+forward-only; in training mode it is `spatial_softmax` and `gaussian2kp` in
+plain PyTorch, which autograd differentiates.
 """
 
 from __future__ import annotations
@@ -14,6 +18,7 @@ from torch import nn
 
 from monkeynet_tpu_torch.models.blocks import Hourglass
 from monkeynet_tpu_torch.ops.cuda.softargmax import softargmax
+from monkeynet_tpu_torch.ops.gaussian import gaussian2kp, spatial_softmax
 from monkeynet_tpu_torch.ops.sampling import resize_nearest
 
 
@@ -40,6 +45,9 @@ class KPDetector(nn.Module):
                 x, (int(H * self.scale_factor), int(W * self.scale_factor))
             )
         heatmap = self.predictor(x)
+        if self.training:
+            heatmap = spatial_softmax(heatmap, self.temperature)
+            return gaussian2kp(heatmap, self.kp_variance, self.clip_variance)
         return softargmax(
             heatmap.contiguous(), self.temperature, self.kp_variance, self.clip_variance
         )

@@ -8,7 +8,11 @@ keypoint:
 
 The per-keypoint interleave is load-bearing: the dense-motion module's
 grouped 1x1 convs (groups = K+1) assume it. Output (B, D, H, W, Kb * cpk).
-On CUDA keypoints the heatmaps are rendered by the heatmap kernel.
+
+The module's mode picks the heatmap renderer, as the JAX package's `train`
+flag does: in eval mode it is the heatmap kernel (on CUDA keypoints), which
+is forward-only; in training mode it is `heatmap_plain`, which autograd
+differentiates.
 """
 
 from __future__ import annotations
@@ -18,7 +22,8 @@ from typing import Union
 import torch
 from torch import nn
 
-from monkeynet_tpu_torch.ops.cuda.heatmap import heatmap as render_heatmap
+from monkeynet_tpu_torch.ops.cuda.heatmap import heatmap as heatmap_kernel
+from monkeynet_tpu_torch.ops.cuda.heatmap import heatmap_plain
 from monkeynet_tpu_torch.ops.sampling import resize_nearest, shift_sample
 
 
@@ -67,6 +72,8 @@ class MovementEmbedding(nn.Module):
         parts = []  # each (B, D, h, w, Kb, c_i)
 
         if self.use_heatmap:
+            render_heatmap = heatmap_plain if self.training else heatmap_kernel
+
             def render(kp):
                 return render_heatmap(kp, (h, w), self.kp_variance, self.norm_const)
 

@@ -24,7 +24,8 @@ import torch
 PACKAGE_DIR = Path(__file__).resolve().parents[2]
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_kernels_build"
-SOURCES = ("warp.cu", "combine.cu", "softargmax.cu", "heatmap.cu")
+SOURCES = ("warp.cu", "warp_dsrc.cu", "warp_dgrid.cu", "combine.cu", "softargmax.cu",
+           "heatmap.cu")
 HEADERS = ("common.cuh",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -39,6 +40,8 @@ _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     "mk_warp_fwd": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P),
+    "mk_warp_dsrc": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P),
+    "mk_warp_dgrid": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _P),
     "mk_combine_fwd": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "mk_softargmax_fwd": (_P, _P, _L, _I, _I, _I, _F, _I, _P),
     "mk_heatmap_fwd": (_P, _P, _P, _L, _I, _I, _I, _F, _I, _F, _P),
@@ -143,3 +146,13 @@ def require_cuda_tensor(t: torch.Tensor, name: str, dtypes, ndim: int) -> None:
         raise ValueError(f"{name}: expected {ndim} dims, got shape {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: tensor must be contiguous")
+
+
+def refuse_grad(t: torch.Tensor, name: str) -> None:
+    """Raise if a forward-only kernel wrapper is handed a tensor that autograd
+    is tracking: its result would carry no grad_fn and cut the graph."""
+    if torch.is_grad_enabled() and t.requires_grad:
+        raise RuntimeError(
+            f"{name}: the kernel is forward-only and its input requires grad; "
+            "call it under torch.no_grad(), or use the plain version to differentiate"
+        )

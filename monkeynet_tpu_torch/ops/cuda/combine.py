@@ -10,8 +10,13 @@ monkeynet_tpu/ops/pallas/combine.py (`_forward`, the `pallas_call` of
 pixel and keeps its K+1 logits in registers and L1. It is bound by bytes:
 (K+1) + 2 f32 read and 2 f32 written per pixel; the table stays in L1.
 
-`combine_plain` is the plain version (`dense_motion_combine_reference`);
-`combine` takes it for a CPU tensor and launches the kernel for a CUDA one.
+`combine_plain` is the plain version (`dense_motion_combine_reference`).
+`combine` goes through `CombineFunction`, whose forward takes the plain
+version for a CPU tensor and launches the kernel for a CUDA one, and whose
+backward is the closed form of the softmax and the table product in plain
+PyTorch: the JAX package computes it outside any TPU kernel too
+(`_bwd` of monkeynet_tpu/ops/pallas/combine.py). So a tensor that requires
+grad always gets a result with a `grad_fn`.
 """
 
 from __future__ import annotations
@@ -34,11 +39,19 @@ def combine_plain(logits, diff, corr):
     return rel + grid[None, None]
 
 
-def combine(logits, diff, corr):
-    """The combine through the kernel for CUDA tensors, plain on the CPU.
-    All three inputs are contiguous f32."""
-    if logits.device.type == "cpu":
-        return combine_plain(logits, diff, corr)
+def combine_backward(logits, diff, g):
+    """Closed-form gradients of the combine for the cotangent g
+    (B,D,h,w,2): with p = softmax(logits) and t_k = g . d_k per pixel,
+    dlogits = p * (t - sum_j p_j t_j), ddiff_k = sum_pix p_k g, dcorr = g."""
+    p = torch.softmax(logits, dim=-1)
+    ddiff = torch.einsum("bdhwk,bdhwc->bdkc", p, g)
+    t = torch.einsum("bdhwc,bdkc->bdhwk", g, diff)
+    dlogits = p * (t - (p * t).sum(dim=-1, keepdim=True))
+    return dlogits, ddiff, g
+
+
+def _combine_forward(logits, diff, corr):
+    """Launch the kernel on contiguous f32 CUDA tensors."""
     f32 = (torch.float32,)
     _build.require_cuda_tensor(logits, "combine logits", f32, 5)
     _build.require_cuda_tensor(diff, "combine diff", f32, 4)
@@ -60,6 +73,29 @@ def combine(logits, diff, corr):
     _build.check_launch(status, "combine")
     combine.launches += 1
     return out
+
+
+class CombineFunction(torch.autograd.Function):
+    """The combine with its closed-form backward."""
+
+    @staticmethod
+    def forward(ctx, logits, diff, corr):
+        ctx.save_for_backward(logits, diff)
+        if logits.device.type == "cpu":
+            return combine_plain(logits, diff, corr)
+        return _combine_forward(logits, diff, corr)
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g):
+        logits, diff = ctx.saved_tensors
+        return combine_backward(logits, diff, g)
+
+
+def combine(logits, diff, corr):
+    """The combine through the kernel for CUDA tensors, plain on the CPU,
+    differentiable on both. All three inputs are contiguous f32."""
+    return CombineFunction.apply(logits, diff, corr)
 
 
 combine.launches = 0

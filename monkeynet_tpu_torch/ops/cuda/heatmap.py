@@ -14,6 +14,11 @@ covariances.
 `heatmap_plain` is the plain version (kp2gaussian, then the movement
 embedding's normalisation); `heatmap` takes it for a CPU tensor and launches
 the kernel for a CUDA one.
+
+The kernel is forward-only, like the TPU kernel, which has no VJP and which
+the JAX package runs only outside training. So the wrapper refuses, on any
+device, keypoints that require grad while grad is enabled: a kernel result
+has no `grad_fn`. `MovementEmbedding` calls `heatmap_plain` in training mode.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ def heatmap(kp, spatial_size, kp_variance="matrix", norm_const=None):
     """Rendered (and normalised) gaussians through the kernel for CUDA
     keypoints, plain on the CPU."""
     mean = kp["mean"]
+    for value in kp.values():
+        _build.refuse_grad(value, "heatmap")
     if mean.device.type == "cpu":
         return heatmap_plain(kp, spatial_size, kp_variance, norm_const)
     B, D, K, _ = mean.shape

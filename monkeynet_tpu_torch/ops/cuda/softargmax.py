@@ -16,6 +16,12 @@ f32 whatever the logits' dtype, as the plain path returns them.
 
 `softargmax_plain` is the plain version (spatial_softmax then gaussian2kp);
 `softargmax` takes it for a CPU tensor and launches the kernel for a CUDA one.
+
+The kernel is forward-only, like the TPU kernel, which has no VJP and which
+the JAX package runs only outside training. So the wrapper refuses, on any
+device, logits that require grad while grad is enabled: a kernel result has
+no `grad_fn`, and training upstream of it would silently stop. `KPDetector`
+takes `spatial_softmax` and `gaussian2kp` itself in training mode.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ def softargmax_plain(logits, temperature):
 def softargmax_stats(logits, temperature):
     """The statistics through the kernel for CUDA tensors, plain on the CPU.
     logits: contiguous (B, D, H, W, K) f32 or bf16."""
+    _build.refuse_grad(logits, "softargmax")
     if logits.device.type == "cpu":
         return softargmax_plain(logits, temperature)
     _build.require_cuda_tensor(logits, "softargmax logits", _build.DTYPE_CODES, 5)

@@ -29,7 +29,8 @@ def warp_video(source, grid):
 
     The source has one frame, so the reference's 3-D sampling with a zero z
     coordinate is 2-D bilinear sampling of that frame for every output
-    frame. On a CUDA tensor this runs the warp kernel.
+    frame. On a CUDA tensor this runs the warp kernels, forward and backward
+    (`WarpFunction`).
 
     Args:
       source: (B, H, W, C) source-frame features.

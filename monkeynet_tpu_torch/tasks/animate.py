@@ -47,11 +47,16 @@ def _cat(parts, dim=1):
     return parts[0] if len(parts) == 1 else torch.cat(parts, dim=dim)
 
 
-def split_kp(kp_joined: Dict) -> Dict[str, Dict]:
-    """Frame 0 of a joined keypoint batch is the source; the rest drive."""
+def split_kp(kp_joined: Dict, detach: bool = False) -> Dict[str, Dict]:
+    """Frame 0 of a joined keypoint batch is the source; the rest drive.
+    `detach` cuts both parts from the autograd graph (the train step's
+    detach_kp_generator / detach_kp_discriminator)."""
+    def part(v):
+        return v.detach() if detach else v
+
     return {
-        "kp_driving": {k: v[:, 1:] for k, v in kp_joined.items()},
-        "kp_source": {k: v[:, :1] for k, v in kp_joined.items()},
+        "kp_driving": {k: part(v[:, 1:]) for k, v in kp_joined.items()},
+        "kp_source": {k: part(v[:, :1]) for k, v in kp_joined.items()},
     }
 
 

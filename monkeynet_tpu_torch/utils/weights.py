@@ -8,6 +8,8 @@ Names follow the reference's checkpoint keys:
   conv kernel (kh, kw, in/g, out)  -> `<path>.weight` (out, in/g, 1, kh, kw)
   conv bias                        -> `<path>.bias`
   norm scale / bias                -> `<path>.weight` / `<path>.bias`
+                                      (batch norms and the discriminator's
+                                      instance norms alike)
   batch_stats mean / var           -> `<path>.running_mean` / `.running_var`
 """
 
@@ -47,6 +49,8 @@ def _module_path(parts) -> str:
         else:
             if p == "dense_motion":
                 out.append("dense_motion_module")
+            elif p == "score_conv":
+                out.append("conv")  # the discriminator's score head
             elif p == "final_conv":
                 # the decoder's last conv, or the generator's refinement head
                 out.append("conv" if out and out[-1] == "decoder" else "refinement_module.conv-last")

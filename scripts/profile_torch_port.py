@@ -1,15 +1,18 @@
 #!/usr/bin/env python3
-"""Where the device time goes in the PyTorch port's taichi-64^2 transfer.
+"""Where the device time goes in the PyTorch port's taichi-64^2 paths.
 
-    python3 scripts/profile_torch_port.py [--dtype bf16|f32] [--frames 256]
+    python3 scripts/profile_torch_port.py [--path transfer|train]
+        [--dtype bf16|f32] [--frames 256] [--batch 32]
 
-Builds configs/taichi.yaml's generator and keypoint detector (random weights
-from a seed), runs TransferEngine once to warm up, then traces one more
-call with torch.profiler (CPU and CUDA activities). Prints JSON lines: the
-top kernels by device time, device time grouped by kind (convolution, the
-port's four kernels, elementwise, ...), and the device's busy share of the
-traced window. Needs one CUDA card; exits non-zero if the trace holds no
-device time.
+Builds configs/taichi.yaml's networks (random weights from a seed). With
+`--path transfer` it runs TransferEngine once to warm up and traces one more
+call; with `--path train` it takes three train steps with Trainer (Adam,
+uint8 batches made on the card) and traces a fourth. The trace comes from
+torch.profiler (CPU and CUDA activities). Prints one JSON object: the top
+kernels by device time, device time grouped by kind (convolution, the port's
+kernels, elementwise, ...), and the device's busy share of the traced
+window. Needs one CUDA card; exits non-zero if the trace holds no device
+time.
 """
 
 from __future__ import annotations
@@ -26,9 +29,11 @@ REPO = Path(__file__).resolve().parents[1]
 
 # kind -> pattern on the kernel's name; the first match wins
 KINDS = (
-    ("port_kernels", r"warp_fwd_kernel|combine_kernel|softargmax_kernel|heatmap_kernel"),
+    ("port_kernels", r"warp_fwd_kernel|warp_dsrc_kernel|warp_dgrid_kernel|combine_kernel"
+                     r"|softargmax_kernel|heatmap_kernel"),
     ("convolution", r"conv|xmma|fprop|implicit|cudnn|wgrad|dgrad|winograd|nhwc|nchw"),
     ("matmul", r"gemm|cutlass|bmm|matmul"),
+    ("optimizer", r"multi_tensor|foreach|adam"),
     ("batch_norm_and_elementwise", r"elementwise|vectorized|unrolled|where|clamp|pow|exp"),
     ("reduction", r"reduce|softmax|norm"),
     ("copy_cat_index", r"copy|cat|index|gather|memcpy|memset|fill"),
@@ -82,9 +87,11 @@ def summarize(device_events, wall_us: float) -> dict:
 
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--path", choices=("transfer", "train"), default="transfer")
     parser.add_argument("--dtype", choices=("bf16", "f32"), default="bf16")
-    parser.add_argument("--frames", type=int, default=256)
-    parser.add_argument("--chunk", type=int, default=128)
+    parser.add_argument("--frames", type=int, default=256, help="transfer: driving frames")
+    parser.add_argument("--chunk", type=int, default=128, help="transfer: frames per chunk")
+    parser.add_argument("--batch", type=int, default=32, help="train: batch size")
     args = parser.parse_args()
 
     import torch
@@ -95,37 +102,64 @@ def main() -> int:
         print("profile_torch_port: CUDA is not available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(REPO))
-    from monkeynet_tpu_torch.tasks.animate import TransferEngine
-    from monkeynet_tpu_torch.tasks.build import build_models
     from monkeynet_tpu_torch.utils.config import load_config
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    dtype = torch.bfloat16 if args.dtype == "bf16" else None
     config = load_config(str(REPO / "configs" / "taichi.yaml"))
-    generator, kp_detector = build_models(config, device="cuda", seed=0)
-    engine = TransferEngine(generator, kp_detector, chunk=args.chunk, dtype=dtype, device="cuda")
     gen = torch.Generator().manual_seed(0)
-    source = torch.rand(1, 1, 64, 64, 3, generator=gen).cuda()
-    driving = torch.rand(1, args.frames, 64, 64, 3, generator=gen).cuda()
-    engine(source, driving)
+    if args.path == "transfer":
+        from monkeynet_tpu_torch.tasks.animate import TransferEngine
+        from monkeynet_tpu_torch.tasks.build import build_models
+
+        dtype = torch.bfloat16 if args.dtype == "bf16" else None
+        generator, kp_detector = build_models(config, device="cuda", seed=0)
+        engine = TransferEngine(generator, kp_detector, chunk=args.chunk, dtype=dtype,
+                                device="cuda")
+        source = torch.rand(1, 1, 64, 64, 3, generator=gen).cuda()
+        driving = torch.rand(1, args.frames, 64, 64, 3, generator=gen).cuda()
+        shape = {"frames": args.frames, "chunk": args.chunk}
+
+        def run():
+            engine(source, driving)
+
+        run()
+    else:
+        from monkeynet_tpu_torch.tasks.build import build_train_models
+        from monkeynet_tpu_torch.tasks.train import Trainer
+
+        train_params = dict(config["train_params"],
+                            compute_dtype="bfloat16" if args.dtype == "bf16" else None)
+        trainer = Trainer(build_train_models(config, device="cuda", seed=0), train_params,
+                          device="cuda", steps_per_epoch=100)
+        batch = {k: torch.randint(0, 256, (args.batch, 1, 64, 64, 3), dtype=torch.uint8,
+                                  generator=gen).cuda() for k in ("source", "video")}
+        shape = {"batch": args.batch}
+
+        def run():
+            trainer.step(batch)
+
+        for _ in range(3):
+            run()
     torch.cuda.synchronize()
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        engine(source, driving)
+        run()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     events = [
         (e.name, e.time_range.start, e.time_range.end)
         for e in prof.events()
-        if e.device_type == DeviceType.CUDA
+        # device-side spans of host annotations (the optimizer's step) cover
+        # kernels that are counted themselves
+        if e.device_type == DeviceType.CUDA and not e.name.startswith("Optimizer.")
     ]
     if not events:
         print("profile_torch_port: the trace holds no device events", file=sys.stderr)
         return 1
     result = summarize(events, wall_us)
-    result.update({"dtype": args.dtype, "frames": args.frames, "chunk": args.chunk,
+    result.update({"path": args.path, "dtype": args.dtype, **shape,
                    "device": torch.cuda.get_device_name(0)})
     print(json.dumps(result, indent=1))
     return 0

@@ -21,6 +21,49 @@ def tiny_config():
     return config
 
 
+def train_config():
+    """The widths of tests/test_train.py's TINY_CONFIG (16^2 frames, 3
+    keypoints, 2-block networks), for the train-step tests."""
+    embedding = {"use_heatmap": True, "norm_const": 10, "heatmap_type": "difference"}
+    return {
+        "model_params": {
+            "common_params": {"num_kp": 3, "kp_variance": "matrix", "num_channels": 3},
+            "kp_detector_params": {
+                "temperature": 0.1, "block_expansion": 4, "max_features": 32, "num_blocks": 2,
+            },
+            "generator_params": {
+                "block_expansion": 4, "max_features": 32, "num_blocks": 2,
+                "num_refinement_blocks": 1,
+                "dense_motion_params": {
+                    "block_expansion": 4, "max_features": 32, "num_blocks": 2,
+                    "use_mask": True, "use_correction": True,
+                    "mask_embedding_params": dict(embedding, use_deformed_source_image=True),
+                },
+                "kp_embedding_params": dict(embedding),
+            },
+            "discriminator_params": {
+                "kp_embedding_params": {"norm_const": 10},
+                "block_expansion": 4, "max_features": 32, "num_blocks": 2,
+            },
+        },
+        "train_params": {
+            "detach_kp_generator": False,
+            "detach_kp_discriminator": True,
+            "num_epochs": 1,
+            "epoch_milestones": [1],
+            "lr": 2.0e-4,
+            "batch_size": 4,
+            "loss_weights": {
+                "reconstruction": [10, 10, 1],
+                "reconstruction_deformed": 0,
+                "generator_gan": 1,
+                "discriminator_gan": 1,
+            },
+        },
+        "dataset_params": {"image_shape": [16, 16, 3]},
+    }
+
+
 def _randomize_batch_stats(tree, rng):
     out = {}
     for k, v in tree.items():
@@ -33,7 +76,7 @@ def _randomize_batch_stats(tree, rng):
     return out
 
 
-def jax_variables(config, seed=0):
+def jax_variables(config, seed=0, image_hw=(H, W)):
     """(models, params, batch_stats) of the JAX package as numpy trees, with
     random running statistics and a non-zero dense-motion head, so the BN
     path and a non-identity flow are both exercised."""
@@ -41,7 +84,7 @@ def jax_variables(config, seed=0):
 
     from monkeynet_tpu.tasks.build import init_models
 
-    models, params, batch_stats = init_models(config, jax.random.PRNGKey(seed), (H, W, 3))
+    models, params, batch_stats = init_models(config, jax.random.PRNGKey(seed), (*image_hw, 3))
     params = jax.tree.map(np.asarray, params)
     rng = np.random.RandomState(seed)
     batch_stats = {k: _randomize_batch_stats(v, rng) for k, v in batch_stats.items()}
@@ -59,6 +102,18 @@ def port_models(config, params, batch_stats):
     for model, name in ((generator, "generator"), (kp_detector, "kp_detector")):
         model.load_state_dict(from_jax_variables(params[name], batch_stats[name]))
     return generator, kp_detector
+
+
+def port_train_models(config, params, batch_stats):
+    """The port's three networks on the CPU, in training mode, with the JAX
+    weights (the discriminator has no batch statistics)."""
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.utils.weights import from_jax_variables
+
+    models = build_train_models(config, device="cpu")
+    for name, model in models.items():
+        model.load_state_dict(from_jax_variables(params[name], batch_stats.get(name, {})))
+    return models
 
 
 def kp_to_numpy(kp):
