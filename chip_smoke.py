@@ -15,8 +15,7 @@ Phases, each of which raises on failure:
   3. slice parity, kernels on the card against the plain versions on the
      CPU from one state_dict: a 4-frame transfer at taichi width, and one
      train step at taichi width and batch 2 (metrics, the gradients of the
-     three networks, the updated batch-norm statistics), held to the step's
-     own f32 noise floor, which is measured beside it;
+     three networks, the updated batch-norm statistics), tolerances stated;
   4. the main paths, with every kernel's launch count checked against the
      count the path implies: TransferEngine on configs/taichi.yaml's model
      at 64^2, 256 driving frames in chunks of 128, in bf16 and in f32; and
@@ -296,6 +295,7 @@ def warp_train_phase(device) -> dict:
         es = 2 if bf16 else 4
         tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None if bf16 else 0.0,
                    "bytes": 0.0, "flops": 0.0, "err": 0.0} for n in names}
+        tot["warp_dsrc"]["extra_bytes"] = 0.0
 
         def tol_of(ref, rounded=False):
             # f32 results: sums of up to 4 * 1024 terms in another order
@@ -344,7 +344,10 @@ def warp_train_phase(device) -> dict:
                    "fwd_plain_ms": time_ms(lambda: warp.grid_sample(src, grid)),
                    "dsrc_plain_ms": time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape)),
                    "dgrid_plain_ms": time_ms(lambda: warp.warp_dgrid_plain(src, grid, dout)),
-                   "library_fwd_ms": None, "library_bwd_ms": None}
+                   "library_fwd_ms": None, "library_bwd_ms": None,
+                   # what d_src moves beyond its bound: the zero fill of its f32
+                   # buffer and, in bf16, the cast's read of that buffer
+                   "dsrc_extra_bytes": B * h * h * C * (8 if bf16 else 4)}
             if not bf16:
                 # F.grid_sample's backward gives both gradients in one call; its
                 # values are compared only on the grid that avoids integers
@@ -378,10 +381,10 @@ def warp_train_phase(device) -> dict:
             plane = B * h * h * C
             work = {
                 "warp_train": (plane * es + n_pts * 8 + n_pts * C * es, n_pts * (C * 8 + 20)),
-                # grid and dout read once; the f32 buffer zero-filled, the
-                # gradient written once in dout's dtype
-                "warp_dsrc": (n_pts * 8 + n_pts * C * es + plane * 4 + plane * es,
-                              n_pts * (C * 8 + 20)),
+                # grid and dout read once, the gradient written once in dout's
+                # dtype. The kernel's own extra traffic is no part of the
+                # bound: see dsrc_extra_bytes above
+                "warp_dsrc": (n_pts * 8 + n_pts * C * es + plane * es, n_pts * (C * 8 + 20)),
                 "warp_dgrid": (plane * es + n_pts * 8 + n_pts * C * es + n_pts * 8,
                                n_pts * (C * 14 + 24)),
             }
@@ -393,6 +396,8 @@ def warp_train_phase(device) -> dict:
                 tot[n]["plain_ms"] += row[f"{key}_plain_ms"]
                 tot[n]["bytes"] += work[n][0]
                 tot[n]["flops"] += work[n][1]
+                if n == "warp_dsrc":
+                    tot[n]["extra_bytes"] += row["dsrc_extra_bytes"]
                 if not bf16:
                     tot[n]["library_ms"] += row["library_fwd_ms" if key == "fwd"
                                                 else "library_bwd_ms"]
@@ -402,8 +407,9 @@ def warp_train_phase(device) -> dict:
 
 
 def combine_backward_phase(device) -> dict:
-    """The combine's closed-form backward (plain PyTorch in both packages)
-    against autograd of combine_plain on the card, at the train step's shape."""
+    """At the train step's shape, on the card: the combine kernel against
+    combine_plain, and its closed-form backward (plain PyTorch in both
+    packages) against autograd of combine_plain."""
     import torch
 
     from monkeynet_tpu_torch.ops.cuda import combine
@@ -414,6 +420,9 @@ def combine_backward_phase(device) -> dict:
     diff = (0.1 * torch.randn(TRAIN_BATCH, 1, K1, 2, generator=gen)).to(device)
     corr = (0.01 * torch.randn(TRAIN_BATCH, 1, HW, HW, 2, generator=gen)).to(device)
     g = torch.randn(TRAIN_BATCH, 1, HW, HW, 2, generator=gen).to(device)
+    forward_err = max_err(combine.combine(logits, diff, corr),
+                          combine.combine_plain(logits, diff, corr))
+    check("combine forward, train shape", forward_err, 1e-5)
 
     def grads(fn):
         # leaves made here, so a captured replay owns its whole graph
@@ -425,13 +434,13 @@ def combine_backward_phase(device) -> dict:
     want = grads(combine.combine_plain)
     # ddiff sums 4096 pixels per entry: f32 noise of ~1e-5 on sums of ~50
     tols = {"dlogits": 1e-5, "ddiff": 1e-3, "dcorr": 0.0}
-    errs = {}
+    errs = {"forward": forward_err}
     for (name, tol), a, b in zip(tols.items(), got, want):
         errs[name] = max_err(a, b)
         check(f"combine backward {name}", errs[name], tol)
     result = {
         "phase": "combine_backward", "shape": list(logits.shape), "max_abs_err": errs,
-        "tol": tols,
+        "tol": dict(tols, forward=1e-5),
         "closed_form_ms": time_ms(lambda: combine.combine_backward(logits, diff, g)),
         "autograd_fwd_bwd_ms": time_ms(lambda: grads(combine.combine_plain)),
     }
@@ -586,8 +595,16 @@ def _sgd(params):
     return torch.optim.SGD(params, lr=1e-3)
 
 
-PARITY_NOISE = 1e-6  # relative; a few f32 ulps, the gap between two conv summation orders
-PARITY_FLOORS = 5  # the card may differ from the CPU by this many noise floors
+# Train parity, card against CPU: the largest relative L2 gap of a
+# sub-module's gradient, the largest absolute gap of a batch-norm statistic,
+# the largest relative gap of a metric. On an H100 the sound kernels read
+# 8.6e-3 (3.4e-3 on another batch), 4.9e-6 and 5.5e-6. With d_grid's x scale
+# W/2 for (W-1)/2 the gradient gap reads 7.1e-2 and 1.2e-1 in the two
+# sub-modules the grid feeds, and with two of d_src's corner weights
+# exchanged 9.7e-1 in the appearance encoder
+# (scripts/train_parity_mutation.py): the gradient limit lies midway, on a
+# log scale, between the sound reading and the smallest wrong one.
+PARITY_TOL = {"grad_rel_l2": 2.5e-2, "bn_stats_max_abs": 1e-4, "metrics_max_rel": 1e-4}
 
 
 def _grad_groups(trainer) -> dict:
@@ -612,17 +629,16 @@ def _buffers(trainer) -> dict:
 
 def train_parity(config, device="cuda") -> dict:
     """One SGD step at taichi width, batch 2, f32: kernels on the card against
-    the plain versions on the CPU, from one state_dict.
+    the plain versions on the CPU, from one state_dict, held to PARITY_TOL.
 
-    At this width the step amplifies rounding noise: a few f32 ulps on the
-    weights move a gradient tensor by ~1e-2 of its size (thirty 1024-wide
-    layers with batch statistics, and a temperature-0.1 softmax in the kp
-    detector). So the card is not held to a fixed tolerance but to the
-    step's own noise floor, measured in the same run: the CPU step repeated
-    with every weight multiplied by 1 + PARITY_NOISE * N(0, 1). Per
-    sub-module, the card's gradient must lie within PARITY_FLOORS of the CPU's (a
-    wrong kernel gradient is off by the gradient's own size, ~100 floors).
-    The kernels' own tight comparisons are phase 2.
+    At this width and with random weights the step amplifies rounding: thirty
+    1024-wide layers with batch statistics and a temperature-0.1 softmax in
+    the kp detector turn the few f32 ulps between two conv summation orders
+    into 3e-3 to 9e-3 of a gradient's size, whichever versions of the kernels
+    run.
+    A wrong kernel gradient is off by a large share of the gradient's own
+    size in the sub-modules it feeds. The kernels' own tight comparisons are
+    phase 2.
     """
     import copy
 
@@ -633,47 +649,33 @@ def train_parity(config, device="cuda") -> dict:
 
     train_params = dict(config["train_params"], compute_dtype=None)
     models = build_train_models(config, device="cpu", seed=SEED)
-    noisy = copy.deepcopy(models)
     gen = torch.Generator().manual_seed(SEED + 4)
-    with torch.no_grad():
-        for model in noisy.values():
-            for p in model.parameters():
-                p.mul_(1.0 + PARITY_NOISE * torch.randn(p.shape, generator=gen))
     batch = {"source": torch.rand(2, 1, HW, HW, 3, generator=gen),
              "video": torch.rand(2, 1, HW, HW, 3, generator=gen)}
     runs = {}
-    for label, start, where in (("cpu", models, "cpu"), ("noisy_cpu", noisy, "cpu"),
-                                ("card", models, device)):
-        trainer = Trainer(copy.deepcopy(start), train_params, device=where,
+    for where in ("cpu", device):
+        trainer = Trainer(copy.deepcopy(models), train_params, device=where,
                           optimizer_factory=_sgd)
         out = trainer.step(batch)
         torch.cuda.synchronize()
-        runs[label] = (_grad_groups(trainer), _buffers(trainer), out["metrics"].cpu())
+        runs[where] = (_grad_groups(trainer), _buffers(trainer), out["metrics"].cpu())
     grads, buffers, metrics = runs["cpu"]
-
-    def gaps(label):
-        g, b, m = runs[label]
-        return {
-            "grad_rel_l2": {k: ((g[k] - grads[k]).norm() / grads[k].norm()).item()
-                            for k in grads},
-            "bn_stats_max_abs": max(max_err(b[k], buffers[k]) for k in buffers),
-            "metrics_max_rel": ((m - metrics).abs() / metrics.abs().clamp_min(1e-6)).max().item(),
-        }
-
-    card, floor = gaps("card"), gaps("noisy_cpu")
-    # least floors: one noise draw can underestimate a floor (the
-    # discriminator's read 1.1e-4 at this noise and 7.3e-4 at three times it)
-    least = {"grad_rel_l2": 1e-3, "bn_stats_max_abs": 1e-5, "metrics_max_rel": 1e-4}
+    card_grads, card_buffers, card_metrics = runs[device]
+    gaps = {
+        "grad_rel_l2": {k: ((card_grads[k] - grads[k]).norm() / grads[k].norm()).item()
+                        for k in grads},
+        "bn_stats_max_abs": max(max_err(card_buffers[k], buffers[k]) for k in buffers),
+        "metrics_max_rel": ((card_metrics - metrics).abs()
+                            / metrics.abs().clamp_min(1e-6)).max().item(),
+    }
     result = {"phase": "train_parity", "batch": 2, "metric_names": metric_names(train_params),
-              "metrics_cpu": metrics.tolist(), "metrics_card": runs["card"][2].tolist(),
-              "card_vs_cpu": card, "noise_floor": floor, "noise": PARITY_NOISE,
-              "tol": f"{PARITY_FLOORS} x max(noise floor, least)", "least": least}
+              "metrics_cpu": metrics.tolist(), "metrics_card": card_metrics.tolist(),
+              "card_vs_cpu": gaps, "tol": PARITY_TOL}
     log(result)
-    for group, err in card["grad_rel_l2"].items():
-        check(f"train parity grad {group}", err,
-              PARITY_FLOORS * max(floor["grad_rel_l2"][group], least["grad_rel_l2"]))
+    for group, err in gaps["grad_rel_l2"].items():
+        check(f"train parity grad {group}", err, PARITY_TOL["grad_rel_l2"])
     for key in ("bn_stats_max_abs", "metrics_max_rel"):
-        check(f"train parity {key}", card[key], PARITY_FLOORS * max(floor[key], least[key]))
+        check(f"train parity {key}", gaps[key], PARITY_TOL[key])
     return result
 
 
@@ -790,8 +792,21 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -
                             "bf16": numbers(summary["warp_train_bf16"])}
         if name in ("warp_dsrc", "warp_dgrid"):
             row["library"] = "F.grid_sample backward, which gives both gradients in one call"
+        if name == "warp_dsrc":
+            # beyond the bound's bytes: the zero fill and, in bf16, the cast's read
+            row["extra_bytes"] = summary[key]["extra_bytes"]
+            row["bf16"]["extra_bytes"] = summary[f"{key}_bf16"]["extra_bytes"]
         rows.append(row)
     return {"kernels": rows}
+
+
+def full_f32() -> None:
+    """Full f32 in every f32 comparison and run: no TF32 in convs or matmuls."""
+    import torch
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
 
 
 def main() -> int:
@@ -806,10 +821,7 @@ def main() -> int:
     sys.path.insert(0, str(REPO))
     from monkeynet_tpu_torch.utils.config import load_config
 
-    # Full f32 in every f32 comparison and run: no TF32 in convs or matmuls.
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
+    full_f32()
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60,

@@ -14,9 +14,9 @@
 // result to the source's dtype afterwards.
 //
 // Bound: bytes. The grid and dout are read once and the gradient is written
-// once on top of its zero fill; the atomics resolve in L2, which holds every
-// source plane of the train step. Atomics add in no fixed order, so two runs
-// agree only to f32 rounding of the sums.
+// once. The zero fill is traffic beyond that bound; the atomics resolve in
+// L2, which holds every source plane of the train step. Atomics add in no
+// fixed order, so two runs agree only to f32 rounding of the sums.
 #include "common.cuh"
 
 namespace {

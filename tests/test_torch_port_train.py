@@ -319,22 +319,31 @@ def test_routings_differ_where_they_should(sgd_steps):
 
 def test_adam_step_matches_jax(shared, sgd_steps):
     """One step of the default optimizer, Adam(0.5, 0.999) at the scheduled
-    rate, against `make_optimizer`. Adam's first step is lr * g / (|g| + eps):
-    where the gradient is well above f32 noise both packages move by the same
-    amount to 1e-6; elsewhere noise can flip the sign, so the gap is only
-    bounded by 2 * lr."""
+    rate, against `make_optimizer` applied to the JAX step's own gradients
+    (the SGD(1.0) step above moved every parameter by exactly its gradient).
+    Adam's first step is lr * g / (|g| + eps): where the gradient is well
+    above f32 noise both packages move by the same amount to 1e-6; elsewhere
+    noise can flip the sign, so the gap is only bounded by 2 * lr."""
     tp = shared[0]["train_params"]
     lr = tp["lr"]
     optimizer = jtrain.make_optimizer(jtrain.multistep_lr(lr, tp["epoch_milestones"], 10))
-    want_after, _ = _jax_step(shared, tp, optimizer)
     before, got_after, _ = _port_step(shared, tp, None)
     (sgd_after, _), _ = sgd_steps("taichi")
+
+    @jax.jit
+    def jax_adam(params, grads):
+        updates, _ = optimizer.update(grads, optimizer.init(params), params)
+        return optax.apply_updates(params, updates)
+
     checked = 0
     for name in MODEL_NAMES:
-        for key, w in want_after[name].items():
-            if "running_" in key or key.endswith("num_batches_tracked"):
-                continue
-            grad = before[name][key] - sgd_after[name][key]
+        trained = [k for k in before[name]
+                   if "running_" not in k and not k.endswith("num_batches_tracked")]
+        grads = {k: before[name][k] - sgd_after[name][k] for k in trained}
+        want_after = jax_adam({k: jnp.asarray(before[name][k].numpy()) for k in trained},
+                              {k: jnp.asarray(grads[k].numpy()) for k in trained})
+        for key in trained:
+            grad, w = grads[key], _t(want_after[key])
             firm = grad.abs() > 1e-3
             gap = (got_after[name][key] - w).abs()
             assert gap.max() <= 2 * lr + 1e-7, f"{name}.{key}"
