@@ -8,7 +8,10 @@ Phases, each of which raises on failure:
   2. per kernel, the kernel against its plain PyTorch version on the card,
      with times for the kernel, the plain version and, for the warp,
      F.grid_sample and its backward: the four forward kernels at the shapes
-     of the taichi-64^2 transfer (chunk of 128 frames); the warp's forward,
+     of the taichi-64^2 transfer (chunk of 128 frames), the soft-argmax and
+     the heatmap also L2-cold, at the source frame's shapes, in both variants
+     of the first and every variance mode and normalisation of the second
+     (softargmax_phase, heatmap_phase); the warp's forward,
      d_src and d_grid kernels at the seven warps of the taichi-64^2 train
      step (batch 32), random and identity (integer-coordinate) grids, f32 and bf16; the
      combine's closed-form backward against autograd;
@@ -60,26 +63,11 @@ def log(obj) -> None:
     print(json.dumps(obj) if isinstance(obj, dict) else obj, flush=True)
 
 
-def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
-    """Mean device time of fn() over `reps` back-to-back replays, from CUDA
-    events.
-
-    fn is captured once into a CUDA graph, and the device spins in a sleep
-    kernel while the host enqueues the replays, so the events time the
-    device's work and not the rate at which Python launches it (~25 us a
-    call, more than most of these kernels take; a plain version launches
-    ~100 kernels a call, which would also fill the launch queue).
-    """
+def _replay_ms(graph, reps: int) -> float:
+    """Device time of one replay of `graph`, mean over `reps` back-to-back
+    replays queued while the device spins in a sleep kernel."""
     import torch
 
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    graph.replay()
-    torch.cuda.synchronize()
     cycles = 50_000_000
     while True:
         marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
@@ -97,6 +85,68 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         cycles *= 2
         if cycles > 3_200_000_000:  # ~2 s of sleep, still outrun by the host
             raise RuntimeError("time_ms: replays could not be queued behind the sleep")
+
+
+def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+    """Mean device time of fn() over `reps` back-to-back replays, from CUDA
+    events. The inputs and outputs are the same in every replay: where they
+    fit the L2 cache, this is an L2-warm time.
+
+    fn is captured once into a CUDA graph, and the device spins in a sleep
+    kernel while the host enqueues the replays, so the events time the
+    device's work and not the rate at which Python launches it (~25 us a
+    call, more than most of these kernels take; a plain version launches
+    ~100 kernels a call, which would also fill the launch queue).
+    """
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    return _replay_ms(graph, reps)
+
+
+def time_cold_ms(calls, bytes_per_call: int, reps: int = 5) -> float:
+    """Mean device time of one call when its inputs and outputs come from
+    device memory, not from the L2 cache.
+
+    `calls` are the same function on distinct copies of its inputs. One CUDA
+    graph runs them all in turn and keeps every result alive, so each call
+    also writes memory of its own; together they must move at least three
+    times the L2's size, so that by the time a replay comes back to a copy
+    the cache has long dropped it. The time of a replay is divided by the
+    number of calls.
+    """
+    import torch
+
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    if bytes_per_call * len(calls) < 3 * l2:
+        raise ValueError(f"time_cold_ms: {len(calls)} calls of {bytes_per_call} bytes do not "
+                         f"exceed three times the L2 cache ({l2} bytes)")
+    calls[0]()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        kept = [call() for call in calls]
+    graph.replay()
+    torch.cuda.synchronize()
+    ms = _replay_ms(graph, reps) / len(calls)
+    del kept
+    return ms
+
+
+def cold_copies(nbytes: int) -> int:
+    """How many distinct copies of an `nbytes` working set time_cold_ms walks
+    over: at least six, and enough to exceed the L2 cache 3.5 times."""
+    import torch
+
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    return max(6, -(-7 * l2 // (2 * nbytes)))
 
 
 def bound_ms(nbytes: float, flops: float):
@@ -128,7 +178,7 @@ def build_kernels() -> float:
     usage = []
     if build_log.exists():
         usage = [line.strip() for line in build_log.read_text().splitlines()
-                 if "Used" in line or "Compiling entry" in line]
+                 if "Used" in line or "Compiling entry" in line or "spill" in line]
     log({"phase": "build", "seconds": seconds, "ptxas": usage})
     return seconds
 
@@ -220,45 +270,167 @@ def kernel_phase(device) -> dict:
          "kernel_ms": summary["combine"]["ms"], "plain_ms": summary["combine"]["plain_ms"],
          "library_ms": None})
 
-    # softargmax: the kp detector's heatmap logits of a chunk, f32 and bf16
+    summary.update(softargmax_phase(device, gen))
+    summary.update(heatmap_phase(device, gen))
+    return summary
+
+
+def softargmax_phase(device, gen) -> dict:
+    """The soft-argmax kernel against its plain version (tolerance 1e-5 on
+    statistics of size <= 1: f32 sums of up to 65536 terms in another order).
+
+    Timed at the transfer's two shapes, the kp detector's logits of a
+    128-frame chunk in f32 and bf16 (L2-warm and cold) and of the source
+    frame. Checked besides at K = 4 (configs/shapes.yaml), with peaked logits
+    (randn x 30: at temperature 0.1 the max and the 1e-7 floor decide), on a
+    frame that ends inside a sweep of the block, on one whose width leaves no
+    thread in a fixed column, and at 256^2 and at a frame
+    whose byte size is no multiple of 16, which take the 'plane' variant."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import softargmax
+
+    tol = 1e-5
+    stats = softargmax.softargmax_stats
+    # a 0-dim tensor, so that the plain version divides: PyTorch's CUDA
+    # division by a Python number multiplies by its reciprocal, which is an
+    # ulp of x / T away from the quotient that the CPU path, the JAX package
+    # and the kernel form, and at T = 0.1 that ulp moves peaked logits' p by 1e-4
+    temperature = torch.tensor(0.1, device=device)
+    before = dict(stats.launches_by_variant)
+    summary = {}
+
+    def run(name, hm, variant, timed=False):
+        plan = softargmax.softargmax_plan(*hm.shape[2:], hm.dtype)
+        if plan.variant != variant:
+            raise AssertionError(f"softargmax {name}: planned {plan}, expected {variant}")
+        err = max_err(stats(hm, 0.1), softargmax.softargmax_plain(hm, temperature))
+        check(f"softargmax {name} {hm.dtype}", err, tol)
+        row = {"kernel": "softargmax", "case": name, "dtype": str(hm.dtype),
+               "shape": list(hm.shape), "variant": plan.variant, "threads": plan.threads,
+               "shared_bytes": plan.shared_bytes, "max_abs_err": err, "tol": tol}
+        if timed:
+            row["kernel_ms"] = time_ms(lambda: stats(hm, 0.1))
+            row["plain_ms"] = time_ms(lambda: softargmax.softargmax_plain(hm, 0.1))
+            row["library_ms"] = None
+        return row
+
     for dtype in (torch.float32, torch.bfloat16):
         hm = torch.randn(1, CHUNK, HW, HW, 10, generator=gen).to(device, dtype)
-        got = softargmax.softargmax_stats(hm, 0.1)
-        err = max_err(got, softargmax.softargmax_plain(hm, 0.1))
-        check(f"softargmax {dtype}", err, 1e-5)
-        row = {
-            "kernel": "softargmax", "dtype": str(dtype), "shape": list(hm.shape),
-            "max_abs_err": err, "tol": 1e-5,
-            "kernel_ms": time_ms(lambda: softargmax.softargmax_stats(hm, 0.1)),
-            "plain_ms": time_ms(lambda: softargmax.softargmax_plain(hm, 0.1)),
-            "library_ms": None,
-        }
+        row = run("chunk", hm, "staged", timed=True)
+        nbytes = hm.numel() * hm.element_size() + CHUNK * 10 * 5 * 4
+        copies = [hm.clone() for _ in range(cold_copies(nbytes))]
+        row["kernel_cold_ms"] = time_cold_ms([lambda x=x: stats(x, 0.1) for x in copies], nbytes)
+        row["cold_copies"] = len(copies)
+        del copies
         log(row)
-        if dtype == torch.float32:
-            summary["softargmax"] = {
-                "ms": row["kernel_ms"], "plain_ms": row["plain_ms"], "library_ms": None,
-                "err": err, "bytes": hm.numel() * 4 + CHUNK * 10 * 5 * 4,
-                "flops": hm.numel() * 40,  # 4 passes: scale, exp, divide, moments
-            }
+        summary["softargmax" if dtype == torch.float32 else "softargmax_bf16"] = {
+            "ms": row["kernel_ms"], "cold_ms": row["kernel_cold_ms"],
+            "plain_ms": row["plain_ms"], "library_ms": None, "err": row["max_abs_err"],
+            "bytes": nbytes,
+            # per element: a compare, a divide, a subtract and an exp; the sum;
+            # p (2); two coordinates in each of two passes (8); the mean (4);
+            # the centred moments (11)
+            "flops": hm.numel() * 30,
+        }
+        for name, shape, scale, variant, timed in (
+                ("source frame", (1, 1, HW, HW, 10), 1.0, "staged", True),
+                ("K=4", (1, CHUNK, HW, HW, 4), 1.0, "staged", False),
+                ("peaked", (1, CHUNK, HW, HW, 10), 30.0, "staged", False),
+                ("ragged sweep", (1, 3, 22, 20, 10), 1.0, "staged", False),
+                ("moving column", (1, 3, 20, 36, 10), 1.0, "staged", False),
+                ("256^2", (1, 2, 256, 256, 10), 1.0, "plane", True),
+                ("odd bytes", (1, 5, 15, 15, 3), 1.0, "plane", False)):
+            hm = (scale * torch.randn(*shape, generator=gen)).to(device, dtype)
+            log(run(name, hm, variant, timed))
+    launched = {k: stats.launches_by_variant[k] - before[k] for k in before}
+    if min(launched.values()) <= 0:
+        raise AssertionError(f"softargmax: a variant was never launched: {launched}")
+    log({"kernel": "softargmax", "launches_by_variant_in_phase": launched})
+    return summary
 
-    # heatmap: the driving keypoints of a chunk, 'matrix' variance, / 100
-    mean = (1.8 * torch.rand(1, CHUNK, 10, 2, generator=gen) - 0.9)
-    a = 0.1 * torch.randn(1, CHUNK, 10, 2, 2, generator=gen)
-    var = a @ a.transpose(-1, -2) + 0.005 * torch.eye(2)
-    kp = {"mean": mean.to(device), "var": var.to(device)}
-    got = heatmap.heatmap(kp, (HW, HW), "matrix", 100)
-    err = max_err(got, heatmap.heatmap_plain(kp, (HW, HW), "matrix", 100))
-    check("heatmap", err, 1e-6)
-    summary["heatmap"] = {
-        "ms": time_ms(lambda: heatmap.heatmap(kp, (HW, HW), "matrix", 100)),
-        "plain_ms": time_ms(lambda: heatmap.heatmap_plain(kp, (HW, HW), "matrix", 100)),
-        "library_ms": None, "err": err,
-        "bytes": got.numel() * 4 + CHUNK * 10 * 6 * 4,
-        "flops": got.numel() * 16,
-    }
-    log({"kernel": "heatmap", "shape": list(got.shape), "max_abs_err": err, "tol": 1e-6,
-         "kernel_ms": summary["heatmap"]["ms"], "plain_ms": summary["heatmap"]["plain_ms"],
-         "library_ms": None})
+
+def heatmap_phase(device, gen) -> dict:
+    """The heatmap kernel against its plain version, tolerance 1e-6 (values
+    <= 1 with no normalisation, <= 0.01 at / 100: a few ulps of the exponent),
+    the plain version evaluated on the CPU and, with the limits `run` states,
+    on the card.
+
+    Timed at the transfer's shapes: the driving keypoints of a 128-frame
+    chunk, 'matrix' variance, / 100 (L2-warm and cold), and the source's
+    D = 1. Checked besides in all three variance modes x three normalisations
+    at 64^2 (keypoints within +-0.9, variances from 0.005), at a width that
+    is no multiple of 4 (scalar stores) and at 128^2 with 'sum' (a plane too
+    large for registers, evaluated twice)."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import heatmap
+
+    tol = 1e-6
+
+    def keypoints(D, K=10):
+        mean = 1.8 * torch.rand(1, D, K, 2, generator=gen) - 0.9
+        a = 0.1 * torch.randn(1, D, K, 2, 2, generator=gen)
+        var = a @ a.transpose(-1, -2) + 0.005 * torch.eye(2)
+        single = 0.005 + 0.02 * torch.rand(1, D, K, 1, 1, generator=gen)
+        return {"matrix": {"mean": mean.to(device), "var": var.to(device)},
+                "single": {"mean": mean.to(device), "var": single.to(device)},
+                0.01: {"mean": mean.to(device)}}
+
+    def run(name, kp, size, variance, norm, timed=False):
+        plan = heatmap.heatmap_plan(*size, norm)
+        got = heatmap.heatmap(kp, size, variance, norm)
+        # The plain version on the CPU is the yardstick: there, as in the JAX
+        # package and in the kernel, a pixel's coordinate is 2 * (i / (n - 1)) - 1
+        # with a division. On the card PyTorch divides by a Python number by
+        # multiplying with its reciprocal, so the plain version's coordinates
+        # are an ulp off, and a gaussian of variance 0.005 turns that ulp
+        # (6e-8 of dx ~ 0.1 in q = dx^2 / var) into 1.5e-6 of a value near 1.
+        # Against the card's plain version the limit is therefore 4e-6 on
+        # values <= 1, 4e-6 / 100 at / 100, and 1e-6 where a plane sums to one.
+        cpu_kp = {k: v.cpu() for k, v in kp.items()}
+        err = max_err(got.cpu(), heatmap.heatmap_plain(cpu_kp, size, variance, norm))
+        check(f"heatmap {name} {variance} {norm}", err, tol)
+        card_err = max_err(got, heatmap.heatmap_plain(kp, size, variance, norm))
+        card_tol = {None: 4e-6, "sum": 1e-6}.get(norm, 4e-6 / 100)
+        check(f"heatmap {name} {variance} {norm} against the card's plain", card_err, card_tol)
+        row = {"kernel": "heatmap", "case": name, "shape": list(got.shape),
+               "kp_variance": variance, "norm_const": norm, "vector": plan.vector,
+               "sum_mode": plan.sum_mode, "max_abs_err": err, "tol": tol,
+               "max_abs_err_card_plain": card_err, "tol_card_plain": card_tol}
+        if timed:
+            row["kernel_ms"] = time_ms(lambda: heatmap.heatmap(kp, size, variance, norm))
+            row["plain_ms"] = time_ms(lambda: heatmap.heatmap_plain(kp, size, variance, norm))
+            row["library_ms"] = None
+        return row
+
+    chunk = keypoints(CHUNK)
+    row = run("chunk", chunk["matrix"], (HW, HW), "matrix", 100, timed=True)
+    elements = CHUNK * 10 * HW * HW
+    nbytes = elements * 4 + CHUNK * 10 * 6 * 4
+    row["cold_copies"] = cold_copies(nbytes)
+    row["kernel_cold_ms"] = time_cold_ms(
+        [lambda: heatmap.heatmap(chunk["matrix"], (HW, HW), "matrix", 100)] * row["cold_copies"],
+        nbytes)
+    log(row)
+    summary = {"heatmap": {
+        "ms": row["kernel_ms"], "cold_ms": row["kernel_cold_ms"], "plain_ms": row["plain_ms"],
+        "library_ms": None, "err": row["max_abs_err"], "bytes": nbytes,
+        # per element: the numerator (4), the exponent's factor, exp2, the scale
+        "flops": elements * 7,
+    }}
+    for variance in ("matrix", "single", 0.01):
+        for norm in (None, "sum", 100):
+            if (variance, norm) != ("matrix", 100):
+                log(run("chunk", chunk[variance], (HW, HW), variance, norm))
+    source = keypoints(1)
+    log(run("source frame", source["matrix"], (HW, HW), "matrix", 100, timed=True))
+    for name, D, size, norms in (("W % 4 != 0", 4, (30, 30), (None, "sum", 100)),
+                                 ("128^2", 2, (128, 128), ("sum",))):
+        small = keypoints(D)
+        for variance in ("matrix", "single", 0.01):
+            for norm in norms:
+                log(run(name, small[variance], size, variance, norm))
     return summary
 
 
@@ -768,8 +940,11 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -
 
     def numbers(s):
         b_ms, b_by = bound_ms(s["bytes"], s["flops"])
-        return {"max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
-                "bound_ms": b_ms, "bound_by": b_by, "library_ms": s["library_ms"]}
+        row = {"max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
+               "bound_ms": b_ms, "bound_by": b_by, "library_ms": s["library_ms"]}
+        if "cold_ms" in s:  # the redesigned kernels: `ms` is L2-warm, this one is not
+            row["cold_ms"] = s["cold_ms"]
+        return row
 
     specs = (
         ("warp", warp.SOURCE, warp.REPLACES, "warp", transfer_launches),

@@ -5,23 +5,333 @@
 //
 // Replaces the TPU kernel of monkeynet_tpu/ops/pallas/softargmax.py
 // (gaussian2kp_pallas -> _kernel), which needs a host-side transpose to
-// (N*K, H, W) planes and one grid step per plane. Here one block owns one
-// plane and reads it straight from the channels-last hourglass output: the
-// K planes of a frame are consecutive blocks, so the stride-K reads of one
-// block share cache lines with its neighbours in L2.
+// (N*K, H, W) planes and one grid step per plane.
 //
-// Bound: bytes. The logits are read once from DRAM (four passes, the later
-// three from L1/L2) and 20 bytes per plane are written. The passes keep the
-// reference's order of operations: max, sum of exp, mean, centred moments.
+// Bound: bytes, N*H*W*K logits in and 20 bytes a plane out. The K planes of
+// a frame are interleaved element by element, so a block that reads one
+// plane in place uses 4 bytes (2 in bf16) of every 32-byte sector it pulls
+// from L2, K blocks pull the same sectors, and each of four passes pulls
+// them again: such a kernel is bound by L2-to-SM sector traffic, many times
+// the bytes of the bound. Two variants, chosen in Python from the shape
+// (ops/cuda/softargmax.py: softargmax_plan):
+//
+//  * staged: one block owns one frame and all its K planes. The frame's
+//    H*W*K contiguous elements are copied once, 16 bytes a thread with
+//    cp.async, into dynamic shared memory (163,840 bytes for a 64x64x10 f32
+//    frame; the launcher opts in to more than 48 KB), in four commit groups
+//    so that the max pass runs on the first quarter while the rest is in
+//    flight (ptxas: 48 to 55 registers, no spills). Every byte crosses L2 once, in full lines, and every later pass
+//    reads shared memory. The block size is a multiple of 32 and of K, so
+//    in a contiguous sweep thread t always meets keypoint t % K: reads are
+//    conflict-free, nothing is indexed per element, and the per-keypoint
+//    reduction is a small pass over per-thread partials in shared memory.
+//    exp runs once per element: e = exp(x/T - m) is written back over the
+//    staged tile in f32. bf16 logits are staged in the upper half of that
+//    f32 tile and converted in place, four sweeps at a time, with a block
+//    barrier only where a store could reach an element another thread has
+//    not read yet (five barriers for a 64-sweep frame). Where the block's
+//    pixels per sweep are a multiple of W (640 threads, K = 10, W = 64) a
+//    thread stays in one column: its x coordinate is hoisted out of the
+//    passes and only the row is walked.
+//  * plane: one block per (frame, keypoint) plane, read in place with stride
+//    K, for frames that do not fit shared memory (256x256x10), frames whose
+//    byte size is no multiple of 16, and K with lcm(32, K) > 1024.
+//
+// Order of operations where the result hangs on it, as the plain version:
+// x / T is a division (at T = 0.1 and logits of +-30 an ulp of the quotient
+// moves p by 3e-5), max, then the sum of exp, then p = e / denom + 1e-7 with
+// no renormalisation, then the moments centred on the mean. The staged
+// variant departs where it costs an ulp or two of a term and no more:
+//  * the max is taken over x and divided once (division by a constant is
+//    monotonic);
+//  * x / T is x * (1/T) corrected by its exact remainder (`divide` below: the
+//    rounded quotient but for rare near-ties, never the ulp that x * (1/T)
+//    alone is off by);
+//  * exp(x/T - m) is ex2.approx(x/T * log2(e) - m * log2(e)), the product and
+//    the difference rounded once in a fused multiply-add; the shift's own
+//    rounding is the same for the whole plane and cancels in e / denom;
+//  * e / denom is e * (1 / denom);
+//  * a coordinate is i * (2 / (n - 1)) - 1 in one fused multiply-add;
+//  * the mean is (sum e * g) / denom, taken in the pass that forms e: the
+//    1e-7 floor adds 1e-7 * sum g to it, and the grid is symmetric about 0.
+//    The floor stays in p for the second moments.
+// Sums are f32 in another order: per thread over sweeps, then over the
+// threads of a keypoint; with a fixed column, sum p * gx is gx * sum p per
+// thread.
+//
+// On an NVIDIA H100 80GB HBM3 at 700 W the staged kernel takes 0.013 ms on a
+// 128-frame chunk of 64x64x10 f32 logits from L2 and 0.017 ms from device
+// memory, against a byte bound of 0.0063 ms; one frame alone takes 0.012 ms,
+// so what is left is one block's own chain, not bytes: the launch (a kernel
+// that does next to nothing takes 0.0038 ms in the same harness), the copy
+// with the max pass under it, the exp pass (~11 instructions an element on
+// one SM), the moments pass, and three reductions. Nothing overlaps the
+// passes after the copy: 128 frames are one wave on 132 SMs. PERF.md has
+// the table.
 #include "common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kPlaneThreads = 256;
+constexpr int kStages = 4;
+constexpr int kBatch = 4;  // sweeps of pass 2 read together
+constexpr int kMaxDynamicShared = 232448;  // 227 KB, the most a block may use on sm_90
+
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
+
+// Reduces NV per-thread values over the threads of each keypoint (thread t
+// holds keypoint t % K) and hands every thread its keypoint's totals. The
+// NV * K (value, keypoint) sums of blockDim.x / K partials are dealt out
+// over the warps. `part` holds NV * blockDim.x floats, `res` NV * K. No
+// barrier opens it: what a thread reads last here is `res`, after the last
+// barrier, and the next reduction writes `res` only after its own first.
+template <int NV, bool kMax>
+__device__ __forceinline__ void keypoint_reduce(float (&v)[NV], float* part, float* res, int K,
+                                                int kp) {
+  const int T = blockDim.x, t = threadIdx.x, lane = t & 31, nwarps = T >> 5;
+  const int per = T / K;
+#pragma unroll
+  for (int j = 0; j < NV; ++j) part[j * T + t] = v[j];
+  __syncthreads();
+  for (int task = t >> 5; task < NV * K; task += nwarps) {
+    const int j = task / K, k = task - j * K;
+    float acc = kMax ? -INFINITY : 0.f;
+    for (int i = lane; i < per; i += 32) {
+      const float x = part[j * T + k + i * K];
+      acc = kMax ? fmaxf(acc, x) : acc + x;
+    }
+    acc = kMax ? warp_max(acc) : warp_sum(acc);
+    if (lane == 0) res[task] = acc;
+  }
+  __syncthreads();
+#pragma unroll
+  for (int j = 0; j < NV; ++j) v[j] = res[j * K + kp];
+}
+
+// Pixel coordinates of a thread's elements as it sweeps the frame: element
+// e = s * blockDim.x + t lies at pixel e / K = s * (blockDim.x / K) + t / K,
+// so column and row advance by fixed steps and no element is divided.
+struct PixelWalk {
+  float col, row, step_col, step_row, width;
+  __device__ __forceinline__ PixelWalk(int t, int T, int K, int W) {
+    const int p0 = t / K, step = T / K;
+    col = (float)(p0 % W);
+    row = (float)(p0 / W);
+    step_col = (float)(step % W);
+    step_row = (float)(step / W);
+    width = (float)W;
+  }
+  __device__ __forceinline__ void next() {
+    col += step_col;
+    row += step_row;
+    if (col >= width) {
+      col -= width;
+      row += 1.f;
+    }
+  }
+};
+
+// x / d, correctly rounded but for the rare near-tie, from r = 1 / d rounded
+// once: the quotient x * r is off by up to an ulp, its exact remainder
+// (one fused multiply-add) corrects it. Three instructions where a division
+// takes about ten and a trip to the special-function unit; x * r alone would
+// not do (see the note on the order of operations above).
+__device__ __forceinline__ float divide(float x, float d, float r) {
+  const float q = x * r;
+  return fmaf(fmaf(-q, d, x), r, q);
+}
+
+// 2^y for y <= 0, two ulps, results under 2^-126 flushed to zero: one
+// instruction. exp(a) = 2^(a * log2 e); rounding that product costs |a| ulps
+// of e, which matters only where e is already negligible beside the plane's
+// largest term, 1.
+constexpr float kLog2e = 1.44269504088896340736f;
+__device__ __forceinline__ float exp2_fast(float y) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y));
+  return r;
+}
+
+// kFixedCol: blockDim.x / K is a multiple of W, so a thread stays in one
+// column of the frame and moves down blockDim.x / (K * W) rows a sweep: the
+// column's coordinate is the thread's own, x-moments factor into that
+// coordinate times the thread's sum of p, and only the row is walked.
+template <typename T, bool kFixedCol>
+__global__ void __launch_bounds__(1024, 1)
+softargmax_staged_kernel(const T* __restrict__ logits, float* __restrict__ stats, int H, int W,
+                         int K, float temperature) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int E = H * W * K;
+  const int NT = blockDim.x, t = threadIdx.x;
+  const int kp = t % K;
+  const int sweeps = (E + NT - 1) / NT;
+  float* tile = reinterpret_cast<float*>(smem_raw);  // E floats
+  float* part = tile + E;                            // 3 * NT floats
+  float* res = part + 3 * NT;                        // 3 * K floats
+  // f32 logits are staged over the tile itself, bf16 logits in its upper half
+  const T* in = reinterpret_cast<const T*>(smem_raw + (size_t)E * (4 - sizeof(T)));
+
+  // stage the frame: kStages commit groups, each a whole number of sweeps
+  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte copy
+  const char* g = reinterpret_cast<const char*>(logits + (size_t)blockIdx.x * E);
+  char* s = reinterpret_cast<char*>(const_cast<T*>(in));
+  int stage_end[kStages];
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) {
+    const int e0 = st == 0 ? 0 : stage_end[st - 1];
+    const int e1 = min(E, (int)((long long)sweeps * (st + 1) / kStages) * NT);
+    stage_end[st] = e1;
+    for (int v = e0 / kVec + t; v < e1 / kVec; v += NT)
+      cp_async_16(s + 16 * (size_t)v, g + 16 * (size_t)v);
+    cp_async_commit();
+  }
+
+  // pass 1, on each stage as it lands: the extreme of x that x / T is largest at
+  const float sign = temperature > 0.f ? 1.f : -1.f;
+  float m[1] = {-INFINITY};
+#pragma unroll
+  for (int st = 0; st < kStages; ++st) {
+    cp_async_wait(kStages - 1 - st);
+    __syncthreads();
+    // a stage is whole sweeps, but for the frame's ragged end in the last one
+    const int e0 = (st == 0 ? 0 : stage_end[st - 1]) + t;
+    const int n = (stage_end[st] - e0 + NT - 1) / NT;  // this thread's elements, <= 0: none
+#pragma unroll 4
+    for (int i = 0; i < n; ++i) m[0] = fmaxf(m[0], sign * to_float(in[e0 + i * NT]));
+  }
+  keypoint_reduce<1, true>(m, part, res, K, kp);
+  const float rcp_t = 1.f / temperature;
+  const float top = divide(sign * m[0], temperature, rcp_t);
+
+  // passes 2 and 3 in one: e = exp(x / T - max), once per element, written
+  // over the tile, with its sum and first moments. The mean of
+  // p = e / denom + 1e-7 is (sum e * g) / denom: the floor adds 1e-7 * sum g,
+  // and the grid is symmetric about 0. A batch of sweeps is read, then
+  // stored, so that its loads overlap. Whole batches of whole sweeps run
+  // without a test per element; the frame's ragged end takes the tested form.
+  const float sx = 2.f / (float)(W - 1), sy = 2.f / (float)(H - 1);
+  const int p0 = t / K;
+  const float gx_own = fmaf((float)(p0 % W), sx, -1.f);  // kFixedCol: the thread's column
+  const float row0 = (float)(p0 / W), step_row = (float)(NT / K / W);
+  const int whole = E / NT;  // sweeps in which every thread has an element
+  float row = row0;
+  PixelWalk px(t, NT, K, W);
+  float sums[3] = {0.f, 0.f, 0.f};  // sum e, sum e * gy, sum e * gx
+  // One shift for the whole plane, so its rounding cancels in e / denom; the
+  // fused multiply-add rounds x / T * log2(e) - shift once.
+  const float top2 = top * kLog2e;
+  int read_by_all = 0;  // sweeps that every thread is known to have read
+  auto exp_batch = [&](int sw, bool tested) {
+    float x[kBatch];
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = (sw + b) * NT + t;
+      x[b] = (!tested || e < E) ? to_float(in[e]) : 0.f;
+    }
+    if (sizeof(T) < 4) {
+      // tile[e] covers the staged elements 2e - E and 2e - E + 1, which lie in
+      // this batch or an earlier one. Before storing, every thread must have
+      // read the highest one this batch's stores reach.
+      const long long reach = 2LL * min((sw + kBatch) * NT, E) - E - 1;
+      if (reach >= (long long)read_by_all * NT) {
+        __syncthreads();
+        read_by_all = sw + kBatch;
+      }
+    }
+#pragma unroll
+    for (int b = 0; b < kBatch; ++b) {
+      const int e = (sw + b) * NT + t;
+      if (!tested || e < E) {
+        const float ex = exp2_fast(fmaf(divide(x[b], temperature, rcp_t), kLog2e, -top2));
+        tile[e] = ex;
+        sums[0] += ex;
+        if (kFixedCol) {
+          sums[1] = fmaf(ex, row, sums[1]);  // in rows; brought to [-1, 1] below
+          row += step_row;
+        } else {
+          sums[1] = fmaf(ex, fmaf(px.row, sy, -1.f), sums[1]);
+          sums[2] = fmaf(ex, fmaf(px.col, sx, -1.f), sums[2]);
+          px.next();
+        }
+      }
+    }
+  };
+  int sw = 0;
+  for (; sw + kBatch <= whole; sw += kBatch) exp_batch(sw, false);
+  for (; sw < sweeps; sw += kBatch) exp_batch(sw, true);
+  if (kFixedCol) {
+    sums[1] = fmaf(sums[1], sy, -sums[0]);
+    sums[2] = gx_own * sums[0];
+  }
+  keypoint_reduce<3, false>(sums, part, res, K, kp);
+  const float inv = 1.f / sums[0];
+  const float mean[2] = {sums[2] * inv, sums[1] * inv};
+
+  // pass 4: second moments of p = e / denom + 1e-7 centred on that mean
+  float var[3] = {0.f, 0.f, 0.f};
+  float sum_p = 0.f, sum_pdy = 0.f;
+  const float off_y = -1.f - mean[1];
+  row = row0;
+  px = PixelWalk(t, NT, K, W);
+  auto moments = [&](int e) {
+    const float p = fmaf(tile[e], inv, 1e-7f);
+    if (kFixedCol) {
+      const float dy = fmaf(row, sy, off_y);
+      const float pdy = p * dy;
+      sum_p += p;
+      sum_pdy += pdy;
+      var[2] = fmaf(pdy, dy, var[2]);
+      row += step_row;
+    } else {
+      const float dx = fmaf(px.col, sx, -1.f) - mean[0];
+      const float dy = fmaf(px.row, sy, off_y);
+      const float pdx = p * dx;
+      var[0] = fmaf(pdx, dx, var[0]);
+      var[1] = fmaf(pdx, dy, var[1]);
+      var[2] = fmaf(p * dy, dy, var[2]);
+      px.next();
+    }
+  };
+#pragma unroll 8
+  for (int s4 = 0; s4 < whole; ++s4) moments(s4 * NT + t);
+  if (whole * NT + t < E) moments(whole * NT + t);
+  if (kFixedCol) {
+    const float dx = gx_own - mean[0];
+    var[0] = sum_p * dx * dx;
+    var[1] = sum_pdy * dx;
+  }
+  keypoint_reduce<3, false>(var, part, res, K, kp);
+
+  if (t < K) {
+    float* o = stats + ((long long)blockIdx.x * K + t) * 5;
+    o[0] = mean[0];
+    o[1] = mean[1];
+    o[2] = var[0];
+    o[3] = var[1];
+    o[4] = var[2];
+  }
+}
 
 template <typename T>
-__global__ void softargmax_kernel(const T* __restrict__ logits, float* __restrict__ stats, int H,
-                                  int W, int K, float temperature) {
+__global__ void softargmax_plane_kernel(const T* __restrict__ logits, float* __restrict__ stats,
+                                        int H, int W, int K, float temperature) {
   __shared__ float smem[32 * 3];
   const int plane = blockIdx.x;  // n * K + k
   const int n = plane / K, k = plane % K;
@@ -67,18 +377,68 @@ __global__ void softargmax_kernel(const T* __restrict__ logits, float* __restric
   }
 }
 
+// A launch that asks for more than 48 KB of dynamic shared memory is refused
+// (cudaErrorInvalidValue from cudaGetLastError, and nothing else says so)
+// unless the kernel was opted in on that device first.
+template <typename T, bool kFixedCol>
+int launch_staged_as(const void* logits, void* stats, long long N, int H, int W, int K,
+                  float temperature, int threads, int shared_bytes, cudaStream_t s) {
+  static bool opted_in[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[device]) {
+    err = cudaFuncSetAttribute(softargmax_staged_kernel<T, kFixedCol>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicShared);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[device] = true;
+  }
+  softargmax_staged_kernel<T, kFixedCol><<<(unsigned)N, threads, shared_bytes, s>>>(
+      static_cast<const T*>(logits), static_cast<float*>(stats), H, W, K, temperature);
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int launch_staged(const void* logits, void* stats, long long N, int H, int W, int K,
+                  float temperature, int threads, int shared_bytes, cudaStream_t s) {
+  if (threads / K % W == 0)
+    return launch_staged_as<T, true>(logits, stats, N, H, W, K, temperature, threads,
+                                     shared_bytes, s);
+  return launch_staged_as<T, false>(logits, stats, N, H, W, K, temperature, threads,
+                                    shared_bytes, s);
+}
+
 }  // namespace
 
-extern "C" int mk_softargmax_fwd(const void* logits, void* stats, long long N, int H, int W, int K,
-                                 float temperature, int dtype, void* stream) {
+// threads and shared_bytes come from softargmax_plan (ops/cuda/softargmax.py):
+// threads a multiple of 32 and of K, shared_bytes = 4 * (H*W*K + 3*threads + 3*K),
+// and H*W*K * sizeof(element) a multiple of 16.
+extern "C" int mk_softargmax_staged(const void* logits, void* stats, long long N, int H, int W,
+                                    int K, float temperature, int dtype, int threads,
+                                    int shared_bytes, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (threads <= 0 || threads > 1024 || threads % 32 != 0 || threads % K != 0)
+    return (int)cudaErrorInvalidValue;
+  if (N == 0) return (int)cudaGetLastError();
+  if (dtype == kFloat32)
+    return launch_staged<float>(logits, stats, N, H, W, K, temperature, threads, shared_bytes, s);
+  if (dtype == kBFloat16)
+    return launch_staged<__nv_bfloat16>(logits, stats, N, H, W, K, temperature, threads,
+                                        shared_bytes, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int mk_softargmax_plane(const void* logits, void* stats, long long N, int H, int W,
+                                   int K, float temperature, int dtype, void* stream) {
   const long long planes = N * K;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (planes > 0) {
     if (dtype == kFloat32) {
-      softargmax_kernel<float><<<(unsigned)planes, kThreads, 0, s>>>(
+      softargmax_plane_kernel<float><<<(unsigned)planes, kPlaneThreads, 0, s>>>(
           static_cast<const float*>(logits), static_cast<float*>(stats), H, W, K, temperature);
     } else if (dtype == kBFloat16) {
-      softargmax_kernel<__nv_bfloat16><<<(unsigned)planes, kThreads, 0, s>>>(
+      softargmax_plane_kernel<__nv_bfloat16><<<(unsigned)planes, kPlaneThreads, 0, s>>>(
           static_cast<const __nv_bfloat16*>(logits), static_cast<float*>(stats), H, W, K,
           temperature);
     } else {

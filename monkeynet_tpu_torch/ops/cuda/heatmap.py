@@ -6,10 +6,13 @@ not at all -> (B, D, K, H, W) f32.
 
 Kernel: csrc/heatmap.cu, CUDA C++ for sm_90a. It replaces the TPU kernel of
 monkeynet_tpu/ops/pallas/heatmap.py (`kp2gaussian_pallas`, the `pallas_call`
-of `_kernel`). One block renders one plane from a few scalars; it is bound by
-the bytes it writes. The determinant is a*d - b*c, as kp2gaussian computes
-it, not the TPU kernel's a*d - ((b+c)/2)^2, which holds only for symmetric
-covariances.
+of `_kernel`). It reads six scalars a plane and is bound by the bytes it
+writes: two blocks per SM walk over the planes, each thread keeps its columns
+and walks down the rows, and stores are 16 bytes wide where W % 4 == 0
+(`heatmap_plan` decides that, and whether 'sum' holds the plane in registers
+or evaluates it twice, from the shape alone). The determinant is a*d - b*c,
+as kp2gaussian computes it, not the TPU kernel's a*d - ((b+c)/2)^2, which
+holds only for symmetric covariances.
 
 `heatmap_plain` is the plain version (kp2gaussian, then the movement
 embedding's normalisation); `heatmap` takes it for a CPU tensor and launches
@@ -23,6 +26,9 @@ has no `grad_fn`. `MovementEmbedding` calls `heatmap_plain` in training mode.
 
 from __future__ import annotations
 
+import functools
+from typing import NamedTuple, Optional
+
 import torch
 
 from monkeynet_tpu_torch.ops.cuda import _build
@@ -32,6 +38,40 @@ SOURCE = "monkeynet_tpu_torch/csrc/heatmap.cu"
 REPLACES = "monkeynet_tpu/ops/pallas/heatmap.py:92"
 
 _VAR_MODES = {"matrix": 0, "single": 1}  # anything else: a scalar variance (2)
+THREADS = 256  # kThreads in csrc/heatmap.cu
+HOLD_ROWS = 4  # kHoldRows: rows of a plane a thread may keep in registers for 'sum'
+BLOCKS_PER_SM = 2
+
+
+class HeatmapPlan(NamedTuple):
+    vector: int  # f32 values per store: 4 (16 bytes) or 1
+    sum_mode: Optional[str]  # None unless norm_const == 'sum': 'registers' | 'recompute'
+
+
+def heatmap_plan(H, W, norm_const) -> HeatmapPlan:
+    """How the kernel stores and, for 'sum', normalises an (H, W) plane.
+
+    Stores are 16 bytes wide where W % 4 == 0 (planes are then 16-byte
+    aligned in the output the wrapper allocates), scalar otherwise. A block's
+    256 threads sit side by side along a row, W / vector of them (at most
+    256), and the rest of the block takes further rows; a thread walks down
+    from its row in steps of that many rows. 'sum' keeps the plane in
+    registers across the reduction where one sweep of columns covers the
+    width and a thread meets at most HOLD_ROWS rows; a larger plane is
+    evaluated twice.
+    """
+    vector = 4 if W % 4 == 0 else 1
+    if norm_const != "sum":
+        return HeatmapPlan(vector, None)
+    cols = W // vector
+    if cols <= THREADS and -(-H // (THREADS // cols)) <= HOLD_ROWS:
+        return HeatmapPlan(vector, "registers")
+    return HeatmapPlan(vector, "recompute")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
 
 
 def normalize_heatmap(heat, norm_const):
@@ -80,12 +120,17 @@ def heatmap(kp, spatial_size, kp_variance="matrix", norm_const=None):
     else:
         norm_mode, norm_value = 2, float(norm_const)
     out = torch.empty((B, D, K, H, W), dtype=torch.float32, device=mean.device)
+    plan = heatmap_plan(H, W, norm_const)
+    planes = B * D * K
+    device_index = mean.device.index if mean.device.index is not None \
+        else torch.cuda.current_device()
+    blocks = max(1, min(planes, BLOCKS_PER_SM * _sm_count(device_index)))
     lib = _build.library()
     with torch.cuda.device(mean.device):
         status = lib.mk_heatmap_fwd(
             mean.data_ptr(), None if var is None else var.data_ptr(), out.data_ptr(),
-            B * D * K, H, W, var_mode, scalar_var, norm_mode, norm_value,
-            _build.stream_of(mean),
+            planes, H, W, var_mode, scalar_var, norm_mode, norm_value,
+            plan.vector, int(plan.sum_mode == "registers"), blocks, _build.stream_of(mean),
         )
     _build.check_launch(status, "heatmap")
     heatmap.launches += 1

@@ -30,7 +30,7 @@ REPO = Path(__file__).resolve().parents[1]
 # kind -> pattern on the kernel's name; the first match wins
 KINDS = (
     ("port_kernels", r"warp_fwd_kernel|warp_dsrc_kernel|warp_dgrid_kernel|combine_kernel"
-                     r"|softargmax_kernel|heatmap_kernel"),
+                     r"|softargmax_staged_kernel|softargmax_plane_kernel|heatmap_kernel"),
     ("convolution", r"conv|xmma|fprop|implicit|cudnn|wgrad|dgrad|winograd|nhwc|nchw"),
     ("matmul", r"gemm|cutlass|bmm|matmul"),
     ("optimizer", r"multi_tensor|foreach|adam"),
@@ -73,6 +73,15 @@ def summarize(device_events, wall_us: float) -> dict:
     stop = max(e for _, _, e in device_events)
     busy = union_us([(s, e) for _, s, e in device_events])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
+    # the port's own kernels, each with its time inside this run: what a
+    # kernel takes where the path calls it, beside chip_smoke.py's times of
+    # the same kernel alone
+    port = defaultdict(lambda: [0.0, 0])
+    for name, (us, calls) in by_name.items():
+        match = re.search(KINDS[0][1], name)
+        if match:
+            port[match.group(0)][0] += us
+            port[match.group(0)][1] += calls
     return {
         "device_time_us": total,
         "device_window_us": stop - start,
@@ -81,6 +90,8 @@ def summarize(device_events, wall_us: float) -> dict:
         "busy_share_of_host_wall": busy / wall_us,
         "by_kind_us": dict(sorted(by_kind.items(), key=lambda kv: -kv[1])),
         "by_kind_share": {k: v / total for k, v in sorted(by_kind.items(), key=lambda kv: -kv[1])},
+        "port_kernels": [{"name": n, "us": v[0], "calls": v[1], "us_per_call": v[0] / v[1]}
+                         for n, v in sorted(port.items())],
         "top_kernels": [{"name": n[:120], "us": v[0], "calls": v[1]} for n, v in top],
     }
 
