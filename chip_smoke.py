@@ -8,13 +8,18 @@ Phases, each of which raises on failure:
   2. per kernel, the kernel against its plain PyTorch version on the card,
      with times for the kernel, the plain version and, for the warp,
      F.grid_sample and its backward: the four forward kernels at the shapes
-     of the taichi-64^2 transfer (chunk of 128 frames), the soft-argmax and
-     the heatmap also L2-cold, at the source frame's shapes, in both variants
-     of the first and every variance mode and normalisation of the second
-     (softargmax_phase, heatmap_phase); the warp's forward,
-     d_src and d_grid kernels at the seven warps of the taichi-64^2 train
-     step (batch 32), random and identity (integer-coordinate) grids, f32 and bf16; the
-     combine's closed-form backward against autograd;
+     of the taichi-64^2 transfer (chunk of 128 frames), the warp forward,
+     soft-argmax and heatmap also L2-cold, the warp on random and identity
+     grids with its launch plan, the soft-argmax and heatmap at the source
+     frame's shapes, in both variants of the first and every variance mode
+     and normalisation of the second (softargmax_phase, heatmap_phase); the
+     warp's forward, d_src and d_grid kernels at the warps of the
+     taichi-64^2 train step (batch 32), random and identity
+     (integer-coordinate) grids, f32 and bf16, the plans and cold times of
+     the forward and d_grid, F.grid_sample's backward for the grid alone,
+     the input alone and both; the forward and d_grid with scalar loads and
+     with 64-bit offsets (warp_edge_phase); the combine's closed-form
+     backward against autograd;
   3. slice parity, kernels on the card against the plain versions on the
      CPU from one state_dict: a 4-frame transfer at taichi width, and one
      train step at taichi width and batch 2 (metrics, the gradients of the
@@ -47,13 +52,16 @@ SEED = 0
 TRAIN_BATCH = 32
 TRAIN_WARMUP_STEPS = 3
 TRAIN_TIMED_STEPS = 10
-# (channels, size) of the seven warps of one train step: the six encoder
-# skips of the taichi model (the first is the source frame itself) and the
-# source frame once more for video_deformed
+# (channels, size) of warps of the taichi model: the six encoder skips (the
+# first is the source frame itself, and its warp is also video_deformed), and
+# last the source frame again, the warp that the JAX package makes a second
+# time for video_deformed. The paths make the first six (WARP_IN_PATH); the
+# seventh is still timed so that the seven-warp sums compare with earlier runs.
 WARP_SHAPES = ((3, 64), (64, 32), (128, 16), (256, 8), (512, 4), (1024, 2), (3, 64))
-# Which of them a train step runs backward: video_deformed (the last) enters
-# no loss in taichi.yaml, and the raw source frame (the first) needs no d_src.
-DGRID_IN_STEP = (True, True, True, True, True, True, False)
+WARP_IN_PATH = (True, True, True, True, True, True, False)
+# Which of them a train step runs backward: all six for the grid, and the
+# five skips past the raw source frame (which needs no gradient) for d_src.
+DGRID_IN_STEP = WARP_IN_PATH
 DSRC_IN_STEP = (False, True, True, True, True, True, False)
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
@@ -186,8 +194,9 @@ def build_kernels() -> float:
 # ---- phase 2 ---------------------------------------------------------------
 
 def _warp_cases(device, gen):
-    """The generator's seven warps per chunk: the six encoder skips of the
-    taichi model and the source frame, each at the skip's size."""
+    """The warps of a chunk at each of WARP_SHAPES: the skip's plane, a grid
+    near the identity (every frame with noise of its own) and the identity
+    grid itself (pixel coordinates on, or within an ulp of, the integers)."""
     import torch
 
     from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
@@ -197,7 +206,8 @@ def _warp_cases(device, gen):
         src = torch.randn(1, h, h, C, generator=gen).to(device)
         ident = make_coordinate_grid((h, h))[None, None].expand(1, CHUNK, h, h, 2)
         grid = ident + 0.1 * torch.randn(1, CHUNK, h, h, 2, generator=gen)
-        cases.append((src, grid.reshape(1, CHUNK * h, h, 2).contiguous().to(device)))
+        cases.append((src, grid.reshape(1, CHUNK * h, h, 2).contiguous().to(device),
+                      ident.reshape(1, CHUNK * h, h, 2).contiguous().to(device)))
     return cases
 
 
@@ -206,48 +216,63 @@ def kernel_phase(device) -> dict:
     import torch
     import torch.nn.functional as F
 
-    from monkeynet_tpu_torch.ops.cuda import combine, heatmap, softargmax, warp
+    from monkeynet_tpu_torch.ops.cuda import combine, warp
 
     gen = torch.Generator().manual_seed(SEED)
     summary = {}
 
-    # warp: f32 and bf16, summed over the seven calls of one chunk
+    # warp: f32 and bf16 at each of the seven shapes, L2-warm and cold; the
+    # sums cover the six warps a chunk makes, and `ms_seven_shapes` all seven
     for dtype, tol_of in ((torch.float32, lambda ref: 1e-5),
                           (torch.bfloat16, lambda ref: 2.0**-8 * ref.abs().max().item())):
-        tot = {"ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0,
-               "library_ms": 0.0 if dtype == torch.float32 else None}
-        for src, grid in _warp_cases(device, gen):
+        bf16 = dtype == torch.bfloat16
+        es = 2 if bf16 else 4
+        tot = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0,
+               "err": 0.0, "library_ms": None if bf16 else 0.0, "ms_seven_shapes": 0.0}
+        for (src, grid, ident), in_path in zip(_warp_cases(device, gen), WARP_IN_PATH):
             src = src.to(dtype)
             B, H, W, C = src.shape
-            out = warp.warp(src, grid)
-            ref = warp.grid_sample(src.float(), grid)
-            err, tol = max_err(out, ref), tol_of(ref)
-            check(f"warp {dtype} C={C}", err, tol)
+            n = grid.shape[1] * grid.shape[2]
+            errs, tols = {}, {}
+            for kind, g in (("random", grid), ("identity", ident)):
+                ref = warp.grid_sample(src.float(), g)
+                errs[kind], tols[kind] = max_err(warp.warp(src, g), ref), tol_of(ref)
+                check(f"warp {dtype} C={C} {kind} grid", errs[kind], tols[kind])
+            nbytes = src.numel() * es + grid.numel() * 4 + n * C * es
+            copies = [(src.clone(), grid.clone()) for _ in range(cold_copies(nbytes))]
             row = {
-                "kernel": "warp", "dtype": str(dtype), "shape": [B, H, W, C],
-                "points": grid.shape[1] * grid.shape[2], "max_abs_err": err, "tol": tol,
+                "kernel": "warp", "dtype": str(dtype), "shape": [B, H, W, C], "points": n,
+                "in_path": in_path, "plan": warp.warp_plan(B, n, C, dtype, True, H * W)._asdict(),
+                "max_abs_err": errs, "tol": tols,
                 "kernel_ms": time_ms(lambda: warp.warp(src, grid)),
+                "kernel_cold_ms": time_cold_ms(
+                    [lambda s=s, g=g: warp.warp(s, g) for s, g in copies], nbytes),
+                "cold_copies": len(copies),
                 "plain_ms": time_ms(lambda: warp.grid_sample(src, grid)),
                 "library_ms": None,
             }
-            if dtype == torch.float32:
+            del copies
+            if not bf16:
                 nchw = src.permute(0, 3, 1, 2)
                 lib = F.grid_sample(nchw, grid, align_corners=True, padding_mode="zeros")
-                row["library_err"] = max_err(lib.permute(0, 2, 3, 1), ref)
+                row["library_err"] = max_err(lib.permute(0, 2, 3, 1),
+                                             warp.grid_sample(src, grid))
                 check(f"F.grid_sample vs plain C={C}", row["library_err"], 1e-5)
                 row["library_ms"] = time_ms(lambda: F.grid_sample(
                     nchw, grid, align_corners=True, padding_mode="zeros"))
-                tot["library_ms"] += row["library_ms"]
             log(row)
-            n = row["points"]
+            tot["ms_seven_shapes"] += row["kernel_ms"]
+            tot["err"] = max(tot["err"], *errs.values())
+            if not in_path:
+                continue
             tot["ms"] += row["kernel_ms"]
+            tot["cold_ms"] += row["kernel_cold_ms"]
             tot["plain_ms"] += row["plain_ms"]
-            tot["bytes"] += src.numel() * src.element_size() + grid.numel() * 4 \
-                + n * C * src.element_size()
+            tot["bytes"] += nbytes
             tot["flops"] += n * (C * 8 + 20)  # 4 taps x (mul + add) per channel + coords
-            tot["err"] = max(tot["err"], err)
-        key = "warp" if dtype == torch.float32 else "warp_bf16"
-        summary[key] = tot
+            if not bf16:
+                tot["library_ms"] += row["library_ms"]
+        summary["warp_bf16" if bf16 else "warp"] = tot
 
     # combine (f32): mask logits, displacement table and correction of a chunk
     K1 = 11
@@ -446,12 +471,15 @@ def _grid_off_integers(B, h, gen, margin=0.05):
 
 
 def warp_train_phase(device) -> dict:
-    """The three warp kernels at the seven warps of one taichi-64^2 train
-    step (batch 32, one driving frame), f32 and bf16, each against the plain
-    version (grid_sample and its autograd, in f32 on the same inputs) on a
-    random grid and on the identity grid. All three are checked and timed at
-    all seven shapes; the summed times, bytes and operations cover the
-    launches of one step (7 forward, 5 d_src, 6 d_grid)."""
+    """The three warp kernels at the seven warps of WARP_SHAPES at the
+    taichi-64^2 train step (batch 32, one driving frame), f32 and bf16, each
+    against the plain version (grid_sample and its autograd, in f32 on the
+    same inputs) on a random grid and on the identity grid, with the plans
+    of the forward and d_grid, and their L2-warm and cold times. Beside them
+    (f32) F.grid_sample's backward three ways: with only the grid leaf
+    requiring grad (d_grid's own function), with only the input leaf (d_src's)
+    and with both. The summed times, bytes and operations cover the launches
+    of one step (6 forward, 5 d_src, 6 d_grid)."""
     import torch
     import torch.nn.functional as F
 
@@ -467,7 +495,12 @@ def warp_train_phase(device) -> dict:
         es = 2 if bf16 else 4
         tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None if bf16 else 0.0,
                    "bytes": 0.0, "flops": 0.0, "err": 0.0} for n in names}
+        for n in ("warp_train", "warp_dgrid"):
+            tot[n]["cold_ms"] = 0.0
+        for n in ("warp_dsrc", "warp_dgrid"):
+            tot[n]["library_both_ms"] = None if bf16 else 0.0
         tot["warp_dsrc"]["extra_bytes"] = 0.0
+        tot["warp_train"]["ms_seven_shapes"] = 0.0
 
         def tol_of(ref, rounded=False):
             # f32 results: sums of up to 4 * 1024 terms in another order
@@ -476,7 +509,8 @@ def warp_train_phase(device) -> dict:
             scale = max(1.0, ref.abs().max().item())
             return (2.0**-8 if rounded else 2e-5) * scale
 
-        for (C, h), dsrc_in_step, dgrid_in_step in zip(WARP_SHAPES, DSRC_IN_STEP, DGRID_IN_STEP):
+        for (C, h), in_path, dsrc_in_step, dgrid_in_step in zip(
+                WARP_SHAPES, WARP_IN_PATH, DSRC_IN_STEP, DGRID_IN_STEP):
             src = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
             dout = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
             grids = {
@@ -508,33 +542,59 @@ def warp_train_phase(device) -> dict:
                     tot[n]["err"] = max(tot[n]["err"], err)
             grid = grids["random"]
             shape = tuple(src.shape)
+            n_pts = B * h * h
+            plane = B * h * h * C
+            work = {
+                "warp_train": (plane * es + n_pts * 8 + n_pts * C * es, n_pts * (C * 8 + 20)),
+                # grid and dout read once, the gradient written once in dout's
+                # dtype. The kernel's own extra traffic is no part of the
+                # bound: see dsrc_extra_bytes below
+                "warp_dsrc": (n_pts * 8 + n_pts * C * es + plane * es, n_pts * (C * 8 + 20)),
+                "warp_dgrid": (plane * es + n_pts * 8 + n_pts * C * es + n_pts * 8,
+                               n_pts * (C * 14 + 24)),
+            }
+            cold = [(src.clone(), grid.clone(), dout.clone())
+                    for _ in range(cold_copies(work["warp_train"][0]))]
             row = {"kernel": "warp fwd/d_src/d_grid", "dtype": str(dtype), "shape": list(shape),
+                   "fwd_plan": warp.warp_plan(B, h * h, C, dtype, True, h * h)._asdict(),
+                   "dgrid_plan": warp.dgrid_plan(B, h * h, C, dtype, True, h * h)._asdict(),
                    "max_abs_err": errs,
                    "fwd_ms": time_ms(lambda: warp.warp(src, grid)),
+                   "fwd_cold_ms": time_cold_ms([lambda s=s, g=g: warp.warp(s, g)
+                                                for s, g, _ in cold], work["warp_train"][0]),
                    "dsrc_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape)),
                    "dgrid_ms": time_ms(lambda: warp.warp_dgrid(src, grid, dout)),
+                   "dgrid_cold_ms": time_cold_ms([lambda s=s, g=g, d=d: warp.warp_dgrid(s, g, d)
+                                                  for s, g, d in cold], work["warp_dgrid"][0]),
+                   "cold_copies": len(cold),
                    "fwd_plain_ms": time_ms(lambda: warp.grid_sample(src, grid)),
                    "dsrc_plain_ms": time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape)),
                    "dgrid_plain_ms": time_ms(lambda: warp.warp_dgrid_plain(src, grid, dout)),
-                   "library_fwd_ms": None, "library_bwd_ms": None,
+                   "library_fwd_ms": None, "library_dsrc_ms": None, "library_dgrid_ms": None,
+                   "library_bwd_ms": None,
                    # what d_src moves beyond its bound: the zero fill of its f32
                    # buffer and, in bf16, the cast's read of that buffer
-                   "dsrc_extra_bytes": B * h * h * C * (8 if bf16 else 4)}
+                   "dsrc_extra_bytes": plane * (8 if bf16 else 4)}
+            del cold
             if not bf16:
-                # F.grid_sample's backward gives both gradients in one call; its
-                # values are compared only on the grid that avoids integers
+                # F.grid_sample's backward; its values are compared only on the
+                # grid that avoids integers
                 nchw = src.permute(0, 3, 1, 2)
                 d_nchw = dout.permute(0, 3, 1, 2)
 
                 def library(image, lgrid):
                     return F.grid_sample(image, lgrid, align_corners=True, padding_mode="zeros")
 
-                def library_grads():
-                    # leaves made here, so a captured replay owns its whole graph
-                    leaves = (nchw.detach().requires_grad_(), grid.detach().requires_grad_())
-                    return torch.autograd.grad(library(*leaves), leaves, d_nchw)
+                def library_grads(want_src=True, want_grid=True):
+                    def fn():
+                        # leaves made here, so a captured replay owns its graph
+                        image = nchw.detach().requires_grad_(want_src)
+                        lgrid = grid.detach().requires_grad_(want_grid)
+                        leaves = [t for t in (image, lgrid) if t.requires_grad]
+                        return torch.autograd.grad(library(image, lgrid), leaves, d_nchw)
+                    return fn
 
-                lib_src, lib_grid = library_grads()
+                lib_src, lib_grid = library_grads()()
                 ref_src = warp.warp_dsrc_plain(grid, dout, shape)
                 ref_grid = warp.warp_dgrid_plain(src, grid, dout)
                 row["library_err"] = {
@@ -547,20 +607,14 @@ def warp_train_phase(device) -> dict:
                 row["library_fwd_ms"] = time_ms(lambda: library(nchw, grid))
                 # the backward alone cannot be replayed from a graph recorded
                 # outside the capture: time forward + backward, less the forward
-                row["library_bwd_ms"] = time_ms(library_grads) - row["library_fwd_ms"]
+                for key, want in (("library_bwd_ms", (True, True)),
+                                  ("library_dsrc_ms", (True, False)),
+                                  ("library_dgrid_ms", (False, True))):
+                    row[key] = time_ms(library_grads(*want)) - row["library_fwd_ms"]
             log(row)
-            n_pts = B * h * h
-            plane = B * h * h * C
-            work = {
-                "warp_train": (plane * es + n_pts * 8 + n_pts * C * es, n_pts * (C * 8 + 20)),
-                # grid and dout read once, the gradient written once in dout's
-                # dtype. The kernel's own extra traffic is no part of the
-                # bound: see dsrc_extra_bytes above
-                "warp_dsrc": (n_pts * 8 + n_pts * C * es + plane * es, n_pts * (C * 8 + 20)),
-                "warp_dgrid": (plane * es + n_pts * 8 + n_pts * C * es + n_pts * 8,
-                               n_pts * (C * 14 + 24)),
-            }
-            in_step = {"warp_train": True, "warp_dsrc": dsrc_in_step, "warp_dgrid": dgrid_in_step}
+            tot["warp_train"]["ms_seven_shapes"] += row["fwd_ms"]
+            in_step = {"warp_train": in_path, "warp_dsrc": dsrc_in_step,
+                       "warp_dgrid": dgrid_in_step}
             for n, key in zip(names, ("fwd", "dsrc", "dgrid")):
                 if not in_step[n]:
                     continue
@@ -568,14 +622,89 @@ def warp_train_phase(device) -> dict:
                 tot[n]["plain_ms"] += row[f"{key}_plain_ms"]
                 tot[n]["bytes"] += work[n][0]
                 tot[n]["flops"] += work[n][1]
+                if "cold_ms" in tot[n]:
+                    tot[n]["cold_ms"] += row[f"{key}_cold_ms"]
                 if n == "warp_dsrc":
                     tot[n]["extra_bytes"] += row["dsrc_extra_bytes"]
                 if not bf16:
-                    tot[n]["library_ms"] += row["library_fwd_ms" if key == "fwd"
-                                                else "library_bwd_ms"]
+                    tot[n]["library_ms"] += row[f"library_{key}_ms"]
+                    if n != "warp_train":
+                        tot[n]["library_both_ms"] += row["library_bwd_ms"]
         for n in names:
             summary[n + ("_bf16" if bf16 else "")] = tot[n]
     return summary
+
+
+def warp_edge_phase(device) -> dict:
+    """The forward and d_grid kernels where the taichi paths do not take
+    them, against their plain versions: scalar loads (a source and dout one
+    element off 16 bytes at C = 64; C = 5 and 12, no multiple of the bf16
+    pack, the first of the f32 one), and 64-bit offsets (2^21 points of 1024
+    bf16 channels, 2^31 elements of output and of dout, held against the
+    plain version on the first and the last two rows of points). Then every
+    variant of both kernels must have launched in the phases so far."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import warp
+
+    gen = torch.Generator().manual_seed(SEED + 12)
+    result = {"phase": "warp_edge", "scalar": [], "index64": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        rounded = 2.0**-8 if dtype == torch.bfloat16 else 2e-5
+        for C in (5, 12, 64):
+            # slices one element into their storage: 4 or 2 bytes off 16
+            src = torch.randn(2 * 9 * 17 * C + 1, generator=gen).to(device, dtype)[1:]
+            src = src.view(2, 9, 17, C)
+            dout = torch.randn(2 * 8 * 8 * C + 1, generator=gen).to(device, dtype)[1:]
+            dout = dout.view(2, 8, 8, C)
+            grid = _grid_off_integers(2, 8, gen).to(device)
+            plans = (warp.warp_plan(2, 64, C, dtype, False, 9 * 17),
+                     warp.dgrid_plan(2, 64, C, dtype, False, 9 * 17))
+            if any(p.vector != 1 for p in plans):
+                raise AssertionError(f"warp edge: planned {plans}, expected scalar loads")
+            ref = warp.grid_sample(src.float(), grid)
+            dref = warp.warp_dgrid_plain(src.float(), grid, dout.float())
+            errs = {"fwd": max_err(warp.warp(src, grid), ref),
+                    "dgrid": max_err(warp.warp_dgrid(src, grid, dout), dref)}
+            check(f"warp edge fwd {dtype} C={C}", errs["fwd"],
+                  rounded * max(1.0, ref.abs().max().item()))
+            check(f"warp edge dgrid {dtype} C={C}", errs["dgrid"],
+                  2e-5 * max(1.0, dref.abs().max().item()))
+            result["scalar"].append({"dtype": str(dtype), "C": C, "max_abs_err": errs,
+                                     "plans": [p._asdict() for p in plans]})
+
+    n, C, dtype = 2**21, 1024, torch.bfloat16
+    src = torch.randn(1, 2, 2, C, generator=gen).to(device, dtype)
+    grid = (2.4 * torch.rand(1, n // 1024, 1024, 2, generator=gen) - 1.2).to(device)
+    plans = (warp.warp_plan(1, n, C, dtype, True, 4), warp.dgrid_plan(1, n, C, dtype, True, 4))
+    if any(p.index_bits != 64 for p in plans):
+        raise AssertionError(f"warp edge: planned {plans}, expected 64-bit offsets")
+    out = warp.warp(src, grid)
+    errs = {}
+    for name, rows in (("first", slice(0, 2)), ("last", slice(-2, None))):
+        ref = warp.grid_sample(src.float(), grid[:, rows])
+        errs[f"fwd.{name}"] = max_err(out[:, rows], ref)
+        check(f"warp edge fwd 64-bit {name}", errs[f"fwd.{name}"],
+              2.0**-8 * max(1.0, ref.abs().max().item()))
+    del out
+    dout = torch.randn(1, n // 1024, 1024, C, generator=torch.Generator(device).manual_seed(1),
+                       device=device, dtype=dtype)
+    dgrid = warp.warp_dgrid(src, grid, dout)
+    for name, rows in (("first", slice(0, 2)), ("last", slice(-2, None))):
+        ref = warp.warp_dgrid_plain(src.float(), grid[:, rows], dout[:, rows].float())
+        errs[f"dgrid.{name}"] = max_err(dgrid[:, rows], ref)
+        check(f"warp edge dgrid 64-bit {name}", errs[f"dgrid.{name}"],
+              2e-5 * max(1.0, ref.abs().max().item()))
+    del dout, dgrid
+    result["index64"] = {"points": n, "channels": C, "max_abs_err": errs,
+                         "plans": [p._asdict() for p in plans]}
+    launched = {"warp": dict(warp.warp.launches_by_variant),
+                "warp_dgrid": dict(warp.warp_dgrid.launches_by_variant)}
+    if min(min(v.values()) for v in launched.values()) <= 0:
+        raise AssertionError(f"warp: a variant was never launched: {launched}")
+    result["launches_by_variant"] = launched
+    log(result)
+    return result
 
 
 def combine_backward_phase(device) -> dict:
@@ -695,11 +824,12 @@ def _counters():
 
 
 def expected_launches(n_frames: int, chunk: int) -> dict:
-    """Per chunk: seven warps (six skips + the source frame), one combine,
-    four heatmaps (driving and source in two embeddings), one soft-argmax;
-    plus one soft-argmax for the source frame on the first chunk."""
+    """Per chunk: six warps (the six encoder skips; the first is the source
+    frame, whose warp is also video_deformed), one combine, four heatmaps
+    (driving and source in two embeddings), one soft-argmax; plus one
+    soft-argmax for the source frame on the first chunk."""
     chunks = -(-n_frames // chunk)
-    return {"warp": 7 * chunks, "warp_dsrc": 0, "warp_dgrid": 0, "combine": chunks,
+    return {"warp": 6 * chunks, "warp_dsrc": 0, "warp_dgrid": 0, "combine": chunks,
             "heatmap": 4 * chunks, "softargmax": chunks + 1}
 
 
@@ -851,11 +981,11 @@ def train_parity(config, device="cuda") -> dict:
     return result
 
 
-# Per train step: seven warps forward; video_deformed enters no loss in
-# taichi.yaml, so six warps run backward, all six for the grid and five for
-# the source (the raw source frame needs no gradient); one combine; the
-# softargmax and heatmap kernels are forward-only and stay out of training.
-TRAIN_STEP_LAUNCHES = {"warp": 7, "warp_dsrc": 5, "warp_dgrid": 6, "combine": 1,
+# Per train step: six warps forward (the encoder skips; video_deformed is the
+# first of them), all six backward for the grid and five for the source (the
+# raw source frame needs no gradient); one combine; the softargmax and
+# heatmap kernels are forward-only and stay out of training.
+TRAIN_STEP_LAUNCHES = {"warp": 6, "warp_dsrc": 5, "warp_dgrid": 6, "combine": 1,
                        "softargmax": 0, "heatmap": 0}
 
 
@@ -935,15 +1065,19 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; both paths' counts are also given
     under their own names. Times are per transfer chunk (forward kernels)
-    and per train step (d_src, d_grid; the warp's `train` entry)."""
+    and per train step (d_src, d_grid; the warp's `train` entry), summed over
+    the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
+    shape, the second warp of the source frame that the path no longer
+    makes."""
     from monkeynet_tpu_torch.ops.cuda import combine, heatmap, softargmax, warp
 
     def numbers(s):
         b_ms, b_by = bound_ms(s["bytes"], s["flops"])
         row = {"max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": s["library_ms"]}
-        if "cold_ms" in s:  # the redesigned kernels: `ms` is L2-warm, this one is not
-            row["cold_ms"] = s["cold_ms"]
+        for key in ("cold_ms", "ms_seven_shapes", "library_both_ms", "extra_bytes"):
+            if key in s:  # cold_ms: the redesigned kernels, `ms` is L2-warm
+                row[key] = s[key]
         return row
 
     specs = (
@@ -966,11 +1100,11 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -
             row["train"] = {"f32": numbers(summary["warp_train"]),
                             "bf16": numbers(summary["warp_train_bf16"])}
         if name in ("warp_dsrc", "warp_dgrid"):
-            row["library"] = "F.grid_sample backward, which gives both gradients in one call"
-        if name == "warp_dsrc":
-            # beyond the bound's bytes: the zero fill and, in bf16, the cast's read
-            row["extra_bytes"] = summary[key]["extra_bytes"]
-            row["bf16"]["extra_bytes"] = summary[f"{key}_bf16"]["extra_bytes"]
+            # extra_bytes (d_src): beyond the bound's bytes, the zero fill and,
+            # in bf16, the cast's read
+            leaf = "input" if name == "warp_dsrc" else "grid"
+            row["library"] = (f"F.grid_sample backward with only the {leaf} requiring grad; "
+                              "library_both_ms: both gradients in one call")
         rows.append(row)
     return {"kernels": rows}
 
@@ -1009,6 +1143,7 @@ def main() -> int:
     build_kernels()
     summary = kernel_phase("cuda")
     summary.update(warp_train_phase("cuda"))
+    warp_edge_phase("cuda")
     combine_backward_phase("cuda")
     slice_parity(config)
     train_parity(config)

@@ -55,6 +55,35 @@ __device__ __forceinline__ bool corner_in_range(float x, float y, int H, int W) 
   return x >= 0.f && x <= (float)(W - 1) && y >= 0.f && y <= (float)(H - 1);
 }
 
+// The four corners of `tp` in the order (x0, y0), (x1, y0), (x0, y1), (x1, y1):
+// whether each lies inside the (H, W) plane, and the element offset of its
+// first channel in a channels-last plane of C channels (0 for a corner
+// outside, which is never read). I is the kernel's index type.
+template <typename I>
+__device__ __forceinline__ void corner_offsets(const Taps& tp, int H, int W, int C,
+                                               bool (&in)[4], I (&off)[4]) {
+  const float xs[4] = {tp.x0, tp.x0 + 1.f, tp.x0, tp.x0 + 1.f};
+  const float ys[4] = {tp.y0, tp.y0, tp.y0 + 1.f, tp.y0 + 1.f};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    in[t] = corner_in_range(xs[t], ys[t], H, W);
+    off[t] = in[t] ? ((I)(int)ys[t] * W + (I)(int)xs[t]) * C : (I)0;
+  }
+}
+
+// V channels at `off` if `in`, else zeros.
+template <typename T, int V, typename I>
+__device__ __forceinline__ Pack<T, V> load_pack(const T* __restrict__ base, I off, bool in) {
+  Pack<T, V> p;
+  if (in) {
+    p = *reinterpret_cast<const Pack<T, V>*>(base + off);
+  } else {
+#pragma unroll
+    for (int j = 0; j < V; ++j) p.v[j] = from_float<T>(0.f);
+  }
+  return p;
+}
+
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
   for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);

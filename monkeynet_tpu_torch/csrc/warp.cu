@@ -5,83 +5,231 @@
 // (_warp_fwd_impl -> _fwd_kernel). That kernel rewrites the gather as two
 // separable hat-matrix matmuls because the TPU has no fast vector gather; a
 // Hopper SM gathers from L1/L2 directly, so this is the plain four-tap
-// gather: one thread per (output point, vector of V channels). Neighbouring
-// threads take neighbouring channels of the same corner pixel, so each corner
-// read is one coalesced row segment of the channels-last source.
+// gather.
 //
 // Bound: bytes. Per output point the kernel must read its 8-byte grid entry
-// and write C values; the source is read once from DRAM and then mostly hit
-// in L2 (50 MB holds every source plane of the main path). Corner weights
-// and coordinates are f32 whatever the operand type; accumulation is f32.
+// and write C values; the source is read once from DRAM and then hit in L2
+// (50 MB holds every source plane of the main paths). What held the first
+// design back was not bytes but issue and latency: 64-bit divisions per
+// thread, one grid read followed by four dependent gathers with nothing to
+// overlap them, 8-byte bf16 packs, and at C = 3 three threads per point
+// that each repeated the grid read and the range tests. So:
+//
+// - 'small' (C <= 4, the source frame): one thread per point carries every
+//   channel; the grid entry is read and the taps formed once per point.
+// - 'vector': `lanes` threads per point (a power of two), each loading
+//   16-byte packs (4 f32 or 8 bf16 channels) of the four corners; a scalar
+//   instantiation (V = 1) takes a C that is no multiple of the pack or a
+//   pointer that is not 16-byte aligned.
+// Both take P points per thread (P from the plan), a block's points in P
+// rows of `rows` points each so every load instruction of a warp stays
+// coalesced; the P grid reads and then all 4P corner loads are issued before
+// any is used. The launch is 2-D (blockIdx.y = batch element), so no
+// thread divides, and index arithmetic is 32-bit (I = int) unless the plan
+// finds an offset at or past 2^31 (I = long long).
+//
+// ops/cuda/warp.py `warp_plan` picks the variant, V, lanes, P, block and
+// launch shape. Coordinates and weights are f32 whatever the operand type;
+// accumulation is f32, corner by corner in the order (x0, y0), (x1, y0),
+// (x0, y1), (x1, y1), with an outside corner's weight zero as in the plain
+// version.
 #include "common.cuh"
 
 namespace {
 
-template <typename T, int V>
-__global__ void warp_fwd_kernel(const T* __restrict__ src, const float* __restrict__ grid,
-                                T* __restrict__ out, int H, int W, int C, long long N,
-                                long long total) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
-  const int CV = C / V;
-  const int cv = (int)(i % CV);
-  const long long bn = i / CV;  // b * N + n
-  const long long b = bn / N;
+constexpr int kSmallC = 4;
 
-  const Taps tp = bilinear_taps(grid[2 * bn], grid[2 * bn + 1], H, W);
-  const float x0 = tp.x0, y0 = tp.y0, x1 = x0 + 1.f, y1 = y0 + 1.f;
+// Taps, corner offsets and weights of the P points of one thread.
+template <int P, typename I>
+struct Points {
+  bool valid[P];
+  bool in[P][4];
+  I off[P][4];
+  float w[P][4];
+};
 
-  const T* base = src + b * (long long)H * W * C + (long long)cv * V;
-  float acc[V];
+template <int P, typename I>
+__device__ __forceinline__ Points<P, I> gather_points(const float* __restrict__ grid, I first,
+                                                      I step, I N, int H, int W, int C) {
+  Points<P, I> s;
+  float gx[P], gy[P];
 #pragma unroll
-  for (int j = 0; j < V; ++j) acc[j] = 0.f;
-
-  const float xs[4] = {x0, x1, x0, x1};
-  const float ys[4] = {y0, y0, y1, y1};
-  const float ws[4] = {tp.wx0 * tp.wy0, tp.wx1 * tp.wy0, tp.wx0 * tp.wy1, tp.wx1 * tp.wy1};
+  for (int j = 0; j < P; ++j) {
+    const I p = first + (I)j * step;
+    s.valid[j] = p < N;
+    gx[j] = s.valid[j] ? grid[2 * p] : 0.f;
+    gy[j] = s.valid[j] ? grid[2 * p + 1] : 0.f;
+  }
 #pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    if (corner_in_range(xs[t], ys[t], H, W)) {
-      const long long pix = (long long)ys[t] * W + (long long)xs[t];
-      const Pack<T, V> p = *reinterpret_cast<const Pack<T, V>*>(base + pix * C);
+  for (int j = 0; j < P; ++j) {
+    const Taps tp = bilinear_taps(gx[j], gy[j], H, W);
+    corner_offsets<I>(tp, H, W, C, s.in[j], s.off[j]);
+    const float ws[4] = {tp.wx0 * tp.wy0, tp.wx1 * tp.wy0, tp.wx0 * tp.wy1, tp.wx1 * tp.wy1};
 #pragma unroll
-      for (int j = 0; j < V; ++j) acc[j] += to_float(p.v[j]) * ws[t];
+    for (int t = 0; t < 4; ++t) {
+      s.in[j][t] = s.in[j][t] && s.valid[j];
+      s.w[j][t] = s.in[j][t] ? ws[t] : 0.f;
     }
   }
-
-  Pack<T, V> o;
-#pragma unroll
-  for (int j = 0; j < V; ++j) o.v[j] = from_float<T>(acc[j]);
-  *reinterpret_cast<Pack<T, V>*>(out + bn * C + (long long)cv * V) = o;
+  return s;
 }
 
-template <typename T, int V>
-void launch(const void* src, const float* grid, void* out, int B, int H, int W, int C,
-            long long N, cudaStream_t stream) {
-  const long long total = (long long)B * N * (C / V);
-  if (total == 0) return;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  warp_fwd_kernel<T, V><<<(unsigned)blocks, threads, 0, stream>>>(
-      static_cast<const T*>(src), grid, static_cast<T*>(out), H, W, C, N, total);
+// P > 1 holds P points' taps and packs in registers; asking for 4 blocks of
+// 256 threads an SM caps them at 64 a thread.
+template <int P>
+constexpr int kMinBlocks = P == 1 ? 1 : 4;
+
+template <typename T, int P, typename I>
+__global__ void __launch_bounds__(256, kMinBlocks<P>)
+warp_fwd_kernel_small(const T* __restrict__ src, const float* __restrict__ grid,
+                      T* __restrict__ out, int H, int W, int C, I N) {
+  const I b = blockIdx.y;
+  src += b * H * W * C;
+  grid += b * N * 2;
+  out += b * N * C;
+  const I rows = blockDim.x;
+  const I first = (I)blockIdx.x * rows * P + threadIdx.x;
+  const Points<P, I> s = gather_points<P, I>(grid, first, rows, N, H, W, C);
+
+  T v[P][4][kSmallC];
+#pragma unroll
+  for (int j = 0; j < P; ++j)
+#pragma unroll
+    for (int t = 0; t < 4; ++t)
+#pragma unroll
+      for (int c = 0; c < kSmallC; ++c)
+        v[j][t][c] = (c < C && s.in[j][t]) ? src[s.off[j][t] + c] : from_float<T>(0.f);
+#pragma unroll
+  for (int j = 0; j < P; ++j) {
+    if (!s.valid[j]) continue;
+    T* o = out + (first + (I)j * rows) * C;
+#pragma unroll
+    for (int c = 0; c < kSmallC; ++c) {
+      if (c >= C) break;
+      float acc = 0.f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) acc += to_float(v[j][t][c]) * s.w[j][t];
+      o[c] = from_float<T>(acc);
+    }
+  }
+}
+
+template <typename T, int V, int P, typename I>
+__global__ void __launch_bounds__(256, kMinBlocks<P>)
+warp_fwd_kernel_vector(const T* __restrict__ src, const float* __restrict__ grid,
+                       T* __restrict__ out, int H, int W, int C, I N, int lanes_log2) {
+  const I b = blockIdx.y;
+  src += b * H * W * C;
+  grid += b * N * 2;
+  out += b * N * C;
+  const int lanes = 1 << lanes_log2;
+  const int lane = threadIdx.x & (lanes - 1);
+  const I rows = blockDim.x >> lanes_log2;
+  const I first = (I)blockIdx.x * rows * P + (threadIdx.x >> lanes_log2);
+  const Points<P, I> s = gather_points<P, I>(grid, first, rows, N, H, W, C);
+
+  // A lane takes packs lane, lane + lanes, ...: two at a time, so the 8P
+  // corner loads of both are in flight together (the plan gives a point
+  // at most two packs a lane).
+  const int packs = C / V;
+  for (int k0 = lane; k0 < packs; k0 += 2 * lanes) {
+    const bool has[2] = {true, k0 + lanes < packs};
+    Pack<T, V> v[P][2][4];
+#pragma unroll
+    for (int j = 0; j < P; ++j)
+#pragma unroll
+      for (int u = 0; u < 2; ++u)
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+          v[j][u][t] = load_pack<T, V, I>(src + (k0 + u * lanes) * V, s.off[j][t],
+                                          s.in[j][t] && has[u]);
+#pragma unroll
+    for (int j = 0; j < P; ++j) {
+      if (!s.valid[j]) continue;
+      T* o = out + (first + (I)j * rows) * C;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        if (!has[u]) continue;
+        Pack<T, V> r;
+#pragma unroll
+        for (int i = 0; i < V; ++i) {
+          float acc = 0.f;
+#pragma unroll
+          for (int t = 0; t < 4; ++t) acc += to_float(v[j][u][t].v[i]) * s.w[j][t];
+          r.v[i] = from_float<T>(acc);
+        }
+        *reinterpret_cast<Pack<T, V>*>(o + (k0 + u * lanes) * V) = r;
+      }
+    }
+  }
+}
+
+enum Variant { kSmall = 0, kVector = 1 };
+
+template <typename T, int P, typename I>
+int launch_p(const void* src, const float* grid, void* out, int H, int W, int C, long long N,
+             int variant, int vector, int lanes_log2, dim3 blocks, int threads,
+             cudaStream_t s) {
+  constexpr int kPack = 16 / sizeof(T);
+  const T* in = static_cast<const T*>(src);
+  T* o = static_cast<T*>(out);
+  if (variant == kSmall && C <= kSmallC) {
+    warp_fwd_kernel_small<T, P, I><<<blocks, threads, 0, s>>>(in, grid, o, H, W, C, (I)N);
+  } else if (variant == kVector && vector == kPack && C % kPack == 0) {
+    warp_fwd_kernel_vector<T, kPack, P, I><<<blocks, threads, 0, s>>>(in, grid, o, H, W, C,
+                                                                      (I)N, lanes_log2);
+  } else if (variant == kVector && vector == 1) {
+    warp_fwd_kernel_vector<T, 1, P, I><<<blocks, threads, 0, s>>>(in, grid, o, H, W, C, (I)N,
+                                                                  lanes_log2);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return 0;
+}
+
+template <typename T, typename I>
+int launch(const void* src, const float* grid, void* out, int H, int W, int C, long long N,
+           int variant, int vector, int lanes_log2, int points, dim3 blocks, int threads,
+           cudaStream_t s) {
+  switch (points) {
+    case 1: return launch_p<T, 1, I>(src, grid, out, H, W, C, N, variant, vector, lanes_log2,
+                                     blocks, threads, s);
+    case 2: return launch_p<T, 2, I>(src, grid, out, H, W, C, N, variant, vector, lanes_log2,
+                                     blocks, threads, s);
+    case 4: return launch_p<T, 4, I>(src, grid, out, H, W, C, N, variant, vector, lanes_log2,
+                                     blocks, threads, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// vec: channels per thread, 4 or 1 (the wrapper picks 4 when C % 4 == 0 and
-// both pointers are aligned to 4 elements).
+// The plan's fields (ops/cuda/warp.py WarpPlan): variant 0 'small' or 1
+// 'vector', channels a load, log2 of the threads per point, points per
+// thread, threads per block, blocks over one batch element's points, and
+// whether offsets need 64 bits.
 extern "C" int mk_warp_fwd(const void* src, const void* grid, void* out, int B, int H, int W,
-                           int C, long long N, int dtype, int vec, void* stream) {
+                           int C, long long N, int dtype, int variant, int vector,
+                           int lanes_log2, int points, int threads, long long blocks_x,
+                           int index64, void* stream) {
+  if (B == 0 || blocks_x == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(grid);
+  const dim3 blocks((unsigned)blocks_x, (unsigned)B);
+  int status;
   if (dtype == kFloat32) {
-    if (vec == 4) launch<float, 4>(src, g, out, B, H, W, C, N, s);
-    else launch<float, 1>(src, g, out, B, H, W, C, N, s);
+    status = index64 ? launch<float, long long>(src, g, out, H, W, C, N, variant, vector,
+                                                lanes_log2, points, blocks, threads, s)
+                     : launch<float, int>(src, g, out, H, W, C, N, variant, vector,
+                                          lanes_log2, points, blocks, threads, s);
   } else if (dtype == kBFloat16) {
-    if (vec == 4) launch<__nv_bfloat16, 4>(src, g, out, B, H, W, C, N, s);
-    else launch<__nv_bfloat16, 1>(src, g, out, B, H, W, C, N, s);
+    status = index64
+        ? launch<__nv_bfloat16, long long>(src, g, out, H, W, C, N, variant, vector,
+                                           lanes_log2, points, blocks, threads, s)
+        : launch<__nv_bfloat16, int>(src, g, out, H, W, C, N, variant, vector, lanes_log2,
+                                     points, blocks, threads, s);
   } else {
-    return (int)cudaErrorInvalidValue;
+    status = (int)cudaErrorInvalidValue;
   }
-  return (int)cudaGetLastError();
+  return status ? status : (int)cudaGetLastError();
 }

@@ -2,7 +2,9 @@
 
 Counterpart of monkeynet_tpu/models/generator.py: appearance encoder over
 the source frame; dense backward flow from the dense-motion module; every
-encoder skip and the source frame warped by the (resized) flow; the kp
+encoder skip warped by the (resized) flow, the first of them, the source
+frame itself, also returned as video_deformed (the JAX package warps the
+source frame a second time for it); the kp
 embedding concatenated onto every skip; U-Net decode; ResBlock refinement;
 sigmoid. All driving frames go through as one batch (D folds into the conv
 batch). On CUDA the warps run in the warp kernel.
@@ -76,6 +78,13 @@ class MotionTransferGenerator(nn.Module):
             deformation = identity_deformation(source_image, kp_driving)
 
         skips = [self._deform_input(skip, deformation) for skip in appearance_skips]
+        # The encoder's first skip is the source frame itself, so its warp is
+        # video_deformed: one warp fewer than the JAX package launches, with
+        # the same values.
+        if appearance_skips[0] is source_image:
+            video_deformed = skips[0]
+        else:
+            video_deformed = self._deform_input(source_image, deformation)
         if self.kp_embedding_module is not None:
             embedding = self.kp_embedding_module(source_image, kp_driving, kp_source)
             skips = [
@@ -86,7 +95,6 @@ class MotionTransferGenerator(nn.Module):
                 )
                 for skip in skips
             ]
-        video_deformed = self._deform_input(source_image, deformation)
         out = self.refinement_module(self.video_decoder(skips))
         return {
             "video_prediction": torch.sigmoid(out),

@@ -1,6 +1,7 @@
 """Bilinear warp, align_corners=True with zeros padding: its three kernels
 (forward, gradient w.r.t. the source, gradient w.r.t. the grid), their plain
-forms, and the autograd function that joins them.
+forms, the launch plans of the forward and of d_grid, and the autograd
+function that joins them.
 
 Kernels: csrc/warp.cu, csrc/warp_dsrc.cu and csrc/warp_dgrid.cu, CUDA C++ for
 sm_90a. They replace the three TPU kernels of
@@ -10,17 +11,25 @@ scatter into separable hat-matrix matmuls over tiles of 256 points, and fall
 back to XLA past an 8 MB source, because the TPU has neither. Hopper has
 both, so none of that carries over:
 
-- forward: a direct four-tap gather, one thread per (output point, 4
-  channels), coordinates and weights in f32, operand f32 or bf16, f32
-  accumulation;
-- d_src: the same threads scatter `dout * w_corner` with f32 atomicAdd into
-  a zeroed f32 buffer, cast to the source's dtype afterwards. Atomics add in
-  no fixed order, so two runs agree to f32 rounding of each pixel's sum
-  (about 1e-6 of the largest term), not bit for bit;
-- d_grid: one warp per output point, lanes striding over channels, the
-  right difference at integer coordinates, f32 throughout.
+- forward: a direct four-tap gather, coordinates and weights in f32, operand
+  f32 or bf16, f32 accumulation. `warp_plan` picks 'small' (C <= 4: one
+  thread per point carries every channel) or 'vector' (a power-of-two group
+  of threads per point, 16-byte packs of channels), and P points per thread
+  whose loads are all issued before any is used;
+- d_src: one thread per (output point, 4 channels) scatters `dout * w_corner`
+  with f32 atomicAdd into a zeroed f32 buffer, cast to the source's dtype
+  afterwards. Atomics add in no fixed order, so two runs agree to f32
+  rounding of each pixel's sum (about 1e-6 of the largest term), not bit for
+  bit;
+- d_grid: the right difference at integer coordinates, f32 throughout.
+  `dgrid_plan` picks 'small' (one thread per point), 'grouped' (up to 32
+  threads per point on 16-byte packs, a segmented shuffle sum) or 'split'
+  (several warps per point, partials added in shared memory in a fixed
+  order), so the result does not change from run to run.
 All three are bound by bytes: grids, outputs and gradients cross DRAM once,
-and the source planes of the main paths fit in the 50 MB L2.
+and the source planes of the main paths fit in the 50 MB L2. The plans are
+plain Python, decided from the shape, the dtype and the pointers' alignment
+before the launch; a refused launch raises.
 
 `grid_sample` is the plain version of the forward, the four-corner gather of
 monkeynet_tpu/ops/sampling.py; its autograd is the plain version of both
@@ -32,6 +41,8 @@ never gets a result without a `grad_fn`.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from monkeynet_tpu_torch.ops.cuda import _build
@@ -42,6 +53,118 @@ DSRC_SOURCE = "monkeynet_tpu_torch/csrc/warp_dsrc.cu"
 DSRC_REPLACES = "monkeynet_tpu/ops/pallas/warp.py:240"
 DGRID_SOURCE = "monkeynet_tpu_torch/csrc/warp_dgrid.cu"
 DGRID_REPLACES = "monkeynet_tpu/ops/pallas/warp.py:257"
+
+MAX_THREADS = 1024
+MAX_GRID_X = 2**31 - 1
+MAX_GRID_Y = 65535
+SMALL_C = 4  # kSmallC in csrc/warp.cu and csrc/warp_dgrid.cu
+POINTS_PER_THREAD = (1, 2, 4)  # the instantiations of csrc/warp.cu
+# Threads an H100 holds resident at once (132 SMs x 2048).
+FULL_WAVE = 132 * 2048
+# A lane takes two packs of a point while that leaves this many threads,
+# else one: measured on an H100 at the taichi shapes, two packs a lane (8
+# gathers in flight) win wherever the launch stays this large, and lose to
+# more threads below it (PERF.md, PR 4).
+_TWO_PACKS_MIN_THREADS = 65536
+_THREADS = 256
+_FWD_VARIANTS = ("small", "vector")
+_DGRID_VARIANTS = ("small", "grouped", "split")
+
+
+class WarpPlan(NamedTuple):
+    """How csrc/warp.cu runs one forward call."""
+
+    variant: str  # 'small' | 'vector'
+    vector: int  # channels one load moves: 16 bytes' worth (4 f32, 8 bf16) or 1
+    lanes: int  # threads per point, a power of two
+    points: int  # points per thread (P)
+    threads: int  # threads per block
+    blocks: tuple  # (x over a batch element's points, y = batch element)
+    index_bits: int  # 32, or 64 where an element offset reaches 2^31
+
+
+class DgridPlan(NamedTuple):
+    """How csrc/warp_dgrid.cu runs one d_grid call."""
+
+    variant: str  # 'small' | 'grouped' | 'split'
+    vector: int
+    lanes: int  # threads per point: 1 ('small'), <= 32 ('grouped'), 64-1024 ('split')
+    threads: int
+    blocks: tuple
+    index_bits: int
+
+
+def _next_pow2(n):
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _pack(C, dtype, aligned):
+    """Channels a load moves: a 16-byte pack where C is a multiple of it and
+    every operand pointer is 16-byte aligned, else 1."""
+    v = 16 // dtype.itemsize
+    return v if aligned and C % v == 0 else 1
+
+
+def _launch(B, N, C, source_pixels, per_block, variant):
+    """(blocks, index bits): blocks over a batch element's points and the
+    batch elements; 32-bit offsets while every element offset the kernel
+    forms (source plane, grid / dout / output rows, the last block's point
+    index) stays below 2^31."""
+    blocks_x = -(-N // per_block)
+    if B > MAX_GRID_Y or blocks_x > MAX_GRID_X:
+        raise ValueError(f"{variant}: {B} batch elements of {N} points exceed the launch grid")
+    largest = max(B * source_pixels * C, B * N * max(C, 2), blocks_x * per_block)
+    return (blocks_x, B), 32 if largest < 2**31 else 64
+
+
+def _lanes(B, N, packs):
+    """Threads per point for `packs` packs a point: two packs a lane while
+    B x N x lanes stays >= 65536, else one; a power of two."""
+    two = _next_pow2(-(-packs // 2))
+    return two if B * N * two >= _TWO_PACKS_MIN_THREADS else _next_pow2(packs)
+
+
+def warp_plan(B, N, C, dtype, aligned, source_pixels) -> WarpPlan:
+    """Variant, pack, threads per point, points per thread and launch shape
+    of the forward kernel for a (B, H, W, C) source of `dtype` with H * W =
+    `source_pixels`, sampled at B x N points. `aligned`: whether the source
+    and the output start on 16 bytes.
+
+    C <= 4 is 'small': one thread per point. Otherwise 'vector', with
+    `_lanes` threads per point, at most a block of 256. P = 1: more points a
+    thread raised its registers from ~55 to 94-146 and lost more occupancy
+    than the extra loads in flight won back (PERF.md, PR 4)."""
+    if C <= SMALL_C:
+        variant, vector, lanes = "small", 1, 1
+    else:
+        variant, vector = "vector", _pack(C, dtype, aligned)
+        lanes = min(_THREADS, _lanes(B, N, C // vector))
+    points = 1
+    blocks, index_bits = _launch(B, N, C, source_pixels, _THREADS // lanes * points, "warp")
+    return WarpPlan(variant, vector, lanes, points, _THREADS, blocks, index_bits)
+
+
+def dgrid_plan(B, N, C, dtype, aligned, source_pixels) -> DgridPlan:
+    """Variant, pack, threads per point and launch shape of the d_grid
+    kernel for a (B, H, W, C) source of `dtype` with H * W =
+    `source_pixels`, B x N points. `aligned`: whether the source and dout
+    start on 16 bytes.
+
+    C <= 4 is 'small': one thread per point. Otherwise `_lanes` threads per
+    point: 'grouped' while they are at most 32; 'split' above, where a point
+    has more packs than fit two to a lane of one warp and B x N x 32 threads
+    would not fill the card (else 'grouped' with 32 lanes)."""
+    if C <= SMALL_C:
+        variant, vector, lanes = "small", 1, 1
+    else:
+        vector = _pack(C, dtype, aligned)
+        lanes = min(MAX_THREADS, _lanes(B, N, C // vector))
+        if lanes > 32 and B * N * 32 >= FULL_WAVE:
+            lanes = 32
+        variant = "split" if lanes > 32 else "grouped"
+    threads = max(_THREADS, lanes)
+    blocks, index_bits = _launch(B, N, C, source_pixels, threads // lanes, "warp_dgrid")
+    return DgridPlan(variant, vector, lanes, threads, blocks, index_bits)
 
 
 def grid_sample(image, grid):
@@ -129,9 +252,29 @@ def _check_dout(dout, grid, C, dtypes, name):
 
 
 def _vec(C, *tensors):
-    """Channels per thread: 4 when C and every pointer allow aligned vectors."""
+    """d_src's channels per thread: 4 when C and every pointer allow aligned
+    vectors."""
     ok = C % 4 == 0 and all(t.data_ptr() % (4 * t.element_size()) == 0 for t in tensors)
     return 4 if ok else 1
+
+
+def _aligned(*tensors):
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def _launch_forward(image, grid, out, plan):
+    """Run the forward kernel under `plan` into `out`."""
+    B, H, W, C = image.shape
+    lib = _build.library()
+    with torch.cuda.device(image.device):
+        status = lib.mk_warp_fwd(
+            image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W, C,
+            grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[image.dtype],
+            _FWD_VARIANTS.index(plan.variant), plan.vector, plan.lanes.bit_length() - 1,
+            plan.points, plan.threads, plan.blocks[0], int(plan.index_bits == 64),
+            _build.stream_of(image),
+        )
+    _build.check_launch(status, f"warp ({plan.variant})")
 
 
 def _warp_forward(image, grid):
@@ -141,15 +284,10 @@ def _warp_forward(image, grid):
     B, H, W, C = image.shape
     Ho, Wo = grid.shape[1], grid.shape[2]
     out = torch.empty((B, Ho, Wo, C), dtype=image.dtype, device=image.device)
-    lib = _build.library()
-    with torch.cuda.device(image.device):
-        status = lib.mk_warp_fwd(
-            image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W, C,
-            Ho * Wo, _build.DTYPE_CODES[image.dtype], _vec(C, image, out),
-            _build.stream_of(image),
-        )
-    _build.check_launch(status, "warp")
+    plan = warp_plan(B, Ho * Wo, C, image.dtype, _aligned(image, out), H * W)
+    _launch_forward(image, grid, out, plan)
     warp.launches += 1
+    warp.launches_by_variant[plan.variant] += 1
     return out
 
 
@@ -182,6 +320,20 @@ def warp_dsrc(grid, dout, image_shape):
 warp_dsrc.launches = 0
 
 
+def _launch_dgrid(image, grid, dout, dgrid, plan):
+    """Run the d_grid kernel under `plan` into `dgrid`."""
+    B, H, W, C = image.shape
+    lib = _build.library()
+    with torch.cuda.device(image.device):
+        status = lib.mk_warp_dgrid(
+            image.data_ptr(), grid.data_ptr(), dout.data_ptr(), dgrid.data_ptr(), B, H, W, C,
+            grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[image.dtype],
+            _DGRID_VARIANTS.index(plan.variant), plan.vector, plan.lanes.bit_length() - 1,
+            plan.threads, plan.blocks[0], int(plan.index_bits == 64), _build.stream_of(image),
+        )
+    _build.check_launch(status, f"warp_dgrid ({plan.variant})")
+
+
 def warp_dgrid(image, grid, dout):
     """Gradient of the warp w.r.t. its grid, (B, Ho, Wo, 2) f32: the d_grid
     kernel for CUDA tensors, plain on the CPU.
@@ -195,19 +347,16 @@ def warp_dgrid(image, grid, dout):
     B, H, W, C = image.shape
     _check_dout(dout, grid, C, (image.dtype,), "warp_dgrid")
     dgrid = torch.empty(grid.shape, dtype=torch.float32, device=image.device)
-    lib = _build.library()
-    with torch.cuda.device(image.device):
-        status = lib.mk_warp_dgrid(
-            image.data_ptr(), grid.data_ptr(), dout.data_ptr(), dgrid.data_ptr(), B, H, W, C,
-            grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[image.dtype],
-            _build.stream_of(image),
-        )
-    _build.check_launch(status, "warp_dgrid")
+    plan = dgrid_plan(B, grid.shape[1] * grid.shape[2], C, image.dtype,
+                      _aligned(image, dout), H * W)
+    _launch_dgrid(image, grid, dout, dgrid, plan)
     warp_dgrid.launches += 1
+    warp_dgrid.launches_by_variant[plan.variant] += 1
     return dgrid
 
 
 warp_dgrid.launches = 0
+warp_dgrid.launches_by_variant = dict.fromkeys(_DGRID_VARIANTS, 0)
 
 
 class WarpFunction(torch.autograd.Function):
@@ -246,3 +395,4 @@ def warp(image, grid):
 
 
 warp.launches = 0
+warp.launches_by_variant = dict.fromkeys(_FWD_VARIANTS, 0)
