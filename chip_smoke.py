@@ -639,7 +639,8 @@ def warp_edge_phase(device) -> dict:
     """The forward and d_grid kernels where the taichi paths do not take
     them, against their plain versions: scalar loads (a source and dout one
     element off 16 bytes at C = 64; C = 5 and 12, no multiple of the bf16
-    pack, the first of the f32 one), and 64-bit offsets (2^21 points of 1024
+    pack, the first of the f32 one), the small forward with its plane read
+    in place and staged from a misaligned plane, and 64-bit offsets (2^21 points of 1024
     bf16 channels, 2^31 elements of output and of dout, held against the
     plain version on the first and the last two rows of points). Then every
     variant of both kernels must have launched in the phases so far."""
@@ -672,6 +673,25 @@ def warp_edge_phase(device) -> dict:
                   2e-5 * max(1.0, dref.abs().max().item()))
             result["scalar"].append({"dtype": str(dtype), "C": C, "max_abs_err": errs,
                                      "plans": [p._asdict() for p in plans]})
+
+    # the small forward with its source plane read in place (128^2 x 3 is
+    # more than the 48 KB it stages) and staged from a plane one element off
+    # 16 bytes (copied element by element)
+    result["small"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for name, size, offset in (("in place", 128, 0), ("staged, misaligned", 64, 1)):
+            src = torch.randn(size * size * 3 + offset, generator=gen).to(device, dtype)
+            src = src[offset:].view(1, size, size, 3)
+            grid = _grid_off_integers(1, 32, gen).to(device)
+            plan = warp.warp_plan(1, 32 * 32, 3, dtype, True, size * size)
+            if (plan.shared_bytes > 0) != (name != "in place"):
+                raise AssertionError(f"warp edge {name}: planned {plan}")
+            ref = warp.grid_sample(src.float(), grid)
+            err = max_err(warp.warp(src, grid), ref)
+            tol = (2.0**-8 if dtype == torch.bfloat16 else 2e-5) * max(1.0, ref.abs().max().item())
+            check(f"warp edge small {name} {dtype}", err, tol)
+            result["small"].append({"case": name, "dtype": str(dtype), "max_abs_err": err,
+                                    "plan": plan._asdict()})
 
     n, C, dtype = 2**21, 1024, torch.bfloat16
     src = torch.randn(1, 2, 2, C, generator=gen).to(device, dtype)

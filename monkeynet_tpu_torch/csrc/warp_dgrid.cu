@@ -32,9 +32,11 @@
 //   the full shuffle tree, writes its partial to shared memory, and the
 //   point's first lane adds the partials in warp order: no atomics, so the
 //   result is the same on every run.
-// The launch is 2-D (blockIdx.y = batch element), so no thread divides, and
-// index arithmetic is 32-bit (I = int) unless the plan finds an offset at or
-// past 2^31 (I = long long).
+// The plan gives a lane two packs of a point where that still leaves 65,536
+// threads, else one: measured on an H100, more threads beat more loads in
+// flight per thread below that (PERF.md). The launch is 2-D (blockIdx.y =
+// batch element), so no thread divides, and index arithmetic is 32-bit
+// (I = int) unless the plan finds an offset at or past 2^31 (I = long long).
 #include "common.cuh"
 
 namespace {
@@ -100,31 +102,19 @@ warp_dgrid_kernel_packed(const T* __restrict__ src, const float* __restrict__ gr
     I off[4];
     corner_offsets<I>(tp, H, W, C, in, off);
     const T* d = dout + (b * N + p) * C;
-    // packs lane, lane + lanes, ... two at a time: 10 loads in flight (the
-    // plan gives a point at most two packs a lane, or 'grouped' 32 lanes)
     const int packs = C / V;
-    for (int k0 = lane; k0 < packs; k0 += 2 * lanes) {
-      const bool has[2] = {true, k0 + lanes < packs};
-      Pack<T, V> g[2], v[2][4];
+    for (int k = lane; k < packs; k += lanes) {
+      const Pack<T, V> g = *reinterpret_cast<const Pack<T, V>*>(d + k * V);
+      Pack<T, V> v[4];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        const int k = k0 + u * lanes;
-        g[u] = load_pack<T, V, I>(d + k * V, (I)0, has[u]);
+      for (int t = 0; t < 4; ++t) v[t] = load_pack<T, V, I>(src + k * V, off[t], in[t]);
 #pragma unroll
-        for (int t = 0; t < 4; ++t)
-          v[u][t] = load_pack<T, V, I>(src + k * V, off[t], in[t] && has[u]);
-      }
-#pragma unroll
-      for (int u = 0; u < 2; ++u) {
-        if (!has[u]) continue;
-#pragma unroll
-        for (int i = 0; i < V; ++i) {
-          const float v00 = to_float(v[u][0].v[i]), v01 = to_float(v[u][1].v[i]);
-          const float v10 = to_float(v[u][2].v[i]), v11 = to_float(v[u][3].v[i]);
-          const float gc = to_float(g[u].v[i]);
-          gx += gc * (tp.wy0 * (v01 - v00) + tp.wy1 * (v11 - v10));
-          gy += gc * (tp.wx0 * (v10 - v00) + tp.wx1 * (v11 - v01));
-        }
+      for (int i = 0; i < V; ++i) {
+        const float v00 = to_float(v[0].v[i]), v01 = to_float(v[1].v[i]);
+        const float v10 = to_float(v[2].v[i]), v11 = to_float(v[3].v[i]);
+        const float gc = to_float(g.v[i]);
+        gx += gc * (tp.wy0 * (v01 - v00) + tp.wy1 * (v11 - v10));
+        gy += gc * (tp.wx0 * (v10 - v00) + tp.wx1 * (v11 - v01));
       }
     }
   }

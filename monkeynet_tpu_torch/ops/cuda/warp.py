@@ -13,9 +13,9 @@ both, so none of that carries over:
 
 - forward: a direct four-tap gather, coordinates and weights in f32, operand
   f32 or bf16, f32 accumulation. `warp_plan` picks 'small' (C <= 4: one
-  thread per point carries every channel) or 'vector' (a power-of-two group
-  of threads per point, 16-byte packs of channels), and P points per thread
-  whose loads are all issued before any is used;
+  thread per point carries every channel; a source plane of up to 48 KB is
+  staged in shared memory) or 'vector' (a power-of-two group of threads per
+  point, 16-byte packs of channels);
 - d_src: one thread per (output point, 4 channels) scatters `dout * w_corner`
   with f32 atomicAdd into a zeroed f32 buffer, cast to the source's dtype
   afterwards. Atomics add in no fixed order, so two runs agree to f32
@@ -58,15 +58,20 @@ MAX_THREADS = 1024
 MAX_GRID_X = 2**31 - 1
 MAX_GRID_Y = 65535
 SMALL_C = 4  # kSmallC in csrc/warp.cu and csrc/warp_dgrid.cu
-POINTS_PER_THREAD = (1, 2, 4)  # the instantiations of csrc/warp.cu
-# Threads an H100 holds resident at once (132 SMs x 2048).
-FULL_WAVE = 132 * 2048
+SMS = 132  # streaming multiprocessors of an H100 SXM
+# Threads an H100 holds resident at once (2048 an SM).
+FULL_WAVE = SMS * 2048
 # A lane takes two packs of a point while that leaves this many threads,
-# else one: measured on an H100 at the taichi shapes, two packs a lane (8
-# gathers in flight) win wherever the launch stays this large, and lose to
-# more threads below it (PERF.md, PR 4).
+# else one: measured on an H100 at the taichi shapes, two packs a lane win
+# wherever the launch stays this large, and lose to more threads below it
+# (PERF.md).
 _TWO_PACKS_MIN_THREADS = 65536
 _THREADS = 256
+# The 'small' forward stages a source plane of at most this many bytes in
+# shared memory (the taichi source frame, 64 x 64 x 3 f32, is 48 KB), with
+# one block of 1024 threads an SM walking the points.
+_STAGE_MAX_BYTES = 48 * 1024
+_STAGE_THREADS = 1024
 _FWD_VARIANTS = ("small", "vector")
 _DGRID_VARIANTS = ("small", "grouped", "split")
 
@@ -77,10 +82,10 @@ class WarpPlan(NamedTuple):
     variant: str  # 'small' | 'vector'
     vector: int  # channels one load moves: 16 bytes' worth (4 f32, 8 bf16) or 1
     lanes: int  # threads per point, a power of two
-    points: int  # points per thread (P)
     threads: int  # threads per block
     blocks: tuple  # (x over a batch element's points, y = batch element)
     index_bits: int  # 32, or 64 where an element offset reaches 2^31
+    shared_bytes: int = 0  # the source plane staged in shared memory; 0: read in place
 
 
 class DgridPlan(NamedTuple):
@@ -105,15 +110,17 @@ def _pack(C, dtype, aligned):
     return v if aligned and C % v == 0 else 1
 
 
-def _launch(B, N, C, source_pixels, per_block, variant):
-    """(blocks, index bits): blocks over a batch element's points and the
-    batch elements; 32-bit offsets while every element offset the kernel
-    forms (source plane, grid / dout / output rows, the last block's point
-    index) stays below 2^31."""
-    blocks_x = -(-N // per_block)
+def _launch(B, N, C, source_pixels, per_block, variant, blocks_x=None):
+    """(blocks, index bits): blocks over a batch element's points (one per
+    `per_block` points, unless the kernel walks them grid-stride with
+    `blocks_x` blocks) and the batch elements; 32-bit offsets while every
+    element offset the kernel forms (source plane, grid / dout / output rows,
+    a point index one stride past the last point) stays below 2^31."""
+    if blocks_x is None:
+        blocks_x = -(-N // per_block)
     if B > MAX_GRID_Y or blocks_x > MAX_GRID_X:
         raise ValueError(f"{variant}: {B} batch elements of {N} points exceed the launch grid")
-    largest = max(B * source_pixels * C, B * N * max(C, 2), blocks_x * per_block)
+    largest = max(B * source_pixels * C, B * N * max(C, 2), N + blocks_x * per_block)
     return (blocks_x, B), 32 if largest < 2**31 else 64
 
 
@@ -125,23 +132,30 @@ def _lanes(B, N, packs):
 
 
 def warp_plan(B, N, C, dtype, aligned, source_pixels) -> WarpPlan:
-    """Variant, pack, threads per point, points per thread and launch shape
-    of the forward kernel for a (B, H, W, C) source of `dtype` with H * W =
-    `source_pixels`, sampled at B x N points. `aligned`: whether the source
-    and the output start on 16 bytes.
+    """Variant, pack, threads per point and launch shape of the forward
+    kernel for a (B, H, W, C) source of `dtype` with H * W = `source_pixels`,
+    sampled at B x N points. `aligned`: whether the source and the output
+    start on 16 bytes.
 
-    C <= 4 is 'small': one thread per point. Otherwise 'vector', with
-    `_lanes` threads per point, at most a block of 256. P = 1: more points a
-    thread raised its registers from ~55 to 94-146 and lost more occupancy
-    than the extra loads in flight won back (PERF.md, PR 4)."""
+    C <= 4 is 'small': one thread per point. Where the source plane fits
+    48 KB and a batch element has at least 1024 points, the plane is staged
+    in shared memory and a block of 1024 threads an SM walks the points
+    (the gathers then come from shared memory). Otherwise 'vector', with
+    `_lanes` threads per point, at most a block of 256."""
     if C <= SMALL_C:
+        plane = source_pixels * C * dtype.itemsize
+        if plane <= _STAGE_MAX_BYTES and N >= _STAGE_THREADS:
+            tiles = -(-N // _STAGE_THREADS)
+            blocks, index_bits = _launch(B, N, C, source_pixels, _STAGE_THREADS, "warp",
+                                         blocks_x=min(tiles, max(1, SMS // B)))
+            return WarpPlan("small", 1, 1, _STAGE_THREADS, blocks, index_bits,
+                            -(-plane // 16) * 16)
         variant, vector, lanes = "small", 1, 1
     else:
         variant, vector = "vector", _pack(C, dtype, aligned)
         lanes = min(_THREADS, _lanes(B, N, C // vector))
-    points = 1
-    blocks, index_bits = _launch(B, N, C, source_pixels, _THREADS // lanes * points, "warp")
-    return WarpPlan(variant, vector, lanes, points, _THREADS, blocks, index_bits)
+    blocks, index_bits = _launch(B, N, C, source_pixels, _THREADS // lanes, "warp")
+    return WarpPlan(variant, vector, lanes, _THREADS, blocks, index_bits)
 
 
 def dgrid_plan(B, N, C, dtype, aligned, source_pixels) -> DgridPlan:
@@ -271,7 +285,7 @@ def _launch_forward(image, grid, out, plan):
             image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W, C,
             grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[image.dtype],
             _FWD_VARIANTS.index(plan.variant), plan.vector, plan.lanes.bit_length() - 1,
-            plan.points, plan.threads, plan.blocks[0], int(plan.index_bits == 64),
+            plan.threads, plan.blocks[0], plan.shared_bytes, int(plan.index_bits == 64),
             _build.stream_of(image),
         )
     _build.check_launch(status, f"warp ({plan.variant})")

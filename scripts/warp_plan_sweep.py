@@ -5,9 +5,10 @@
 
 At the six warps of the taichi-64^2 generator (its encoder skips), at a
 128-frame transfer chunk (batch 1) and at the batch-32 train step, in f32 and
-bf16: the forward with one, two or four packs a lane and P points a thread,
-and d_grid with one to eight packs a lane ('grouped' up to 32 lanes a point,
-'split' above), each held against its plain version and timed L2-warm
+bf16: the forward with one, two or four packs a lane (C <= 4: the source
+plane staged in shared memory or read in place), and d_grid with one to
+eight packs a lane ('grouped' up to 32 lanes a point, 'split' above), each
+held against its plain version and timed L2-warm
 (chip_smoke.time_ms: CUDA-graph replays behind a sleep kernel). At the chunk
 shapes also what bounds the forward: its time on a random, the identity and
 a constant grid (every point at one pixel), and the time to zero-fill and to
@@ -73,18 +74,27 @@ def main() -> int:
                 plan = warp.warp_plan(B, N, C, dtype, True, h * h)
                 row = {"dtype": str(dtype), "where": where, "shape": [B, h, h, C],
                        "points": B * N, "plan": plan._asdict(), "forward_us": {}}
-                most = 1 << (C // plan.vector - 1).bit_length()
-                lanes = [1] if plan.variant == "small" else \
-                    sorted({max(1, min(256, most >> k)) for k in (0, 1, 2)})
-                for lane_count in lanes:
-                    for P in warp.POINTS_PER_THREAD:
-                        option = plan._replace(lanes=lane_count, points=P, blocks=(
-                            -(-N // (plan.threads // lane_count * P)), B))
-                        out.zero_()
-                        warp._launch_forward(src, grid, out, option)
-                        checked(f"forward {option}", out, ref, 2.0**-8 if bf16 else 2e-5)
-                        row["forward_us"][f"lanes={lane_count},P={P}"] = us(
-                            lambda o=option: warp._launch_forward(src, grid, out, o))
+                if plan.variant == "small":
+                    # the plan (a plane of up to 48 KB staged in shared memory,
+                    # a block of 1024 threads an SM), the plane read in place
+                    # by a thread a point, and staged with 512 threads, two
+                    # blocks an SM
+                    options = {"planned": plan, "in_place": plan._replace(
+                        threads=256, shared_bytes=0, blocks=(-(-N // 256), B))}
+                    if plan.shared_bytes:
+                        options["staged,threads=512,per_sm=2"] = plan._replace(
+                            threads=512, blocks=(min(-(-N // 512), max(1, 2 * warp.SMS // B)), B))
+                else:
+                    most = 1 << (C // plan.vector - 1).bit_length()
+                    options = {f"lanes={n}": plan._replace(
+                        lanes=n, blocks=(-(-N // (plan.threads // n)), B))
+                        for n in sorted({min(256, most >> k) for k in (0, 1, 2)} - {0})}
+                for name, option in options.items():
+                    out.zero_()
+                    warp._launch_forward(src, grid, out, option)
+                    checked(f"forward {option}", out, ref, 2.0**-8 if bf16 else 2e-5)
+                    row["forward_us"][name] = us(
+                        lambda o=option: warp._launch_forward(src, grid, out, o))
                 row["forward_best"] = min(row["forward_us"], key=row["forward_us"].get)
                 if where == "chunk":
                     const = torch.full_like(ident, 0.013)

@@ -72,39 +72,41 @@ def _config_warp_shapes(path):
 
 # ---- (a) plans -------------------------------------------------------------
 
-def _replay_block(plan, N, C, bx):
-    """How often the threads of block `bx` of a launch meet each (point,
-    channel) of the block's tile of points: the forward plan's P rows of
-    points, or d_grid's one; lane l of a point takes packs l, l + lanes, ...
-    of `vector` channels ('small': every channel). A thread meets no point
-    at or past N."""
-    P = getattr(plan, "points", 1)
+def _replay_tile(plan, N, C, tile):
+    """How often the threads of a block meet each (point, channel) of the
+    tile of threads / lanes points it takes at once, the tile-th of the
+    launch: lane l of a point takes packs l, l + lanes, ... of `vector`
+    channels ('small': every channel). A thread meets no point at or past
+    N."""
     rows = plan.threads // plan.lanes
     tid = np.arange(plan.threads)
-    row, lane = tid // plan.lanes, tid % plan.lanes
+    local, lane = tid // plan.lanes, tid % plan.lanes
+    valid = tile * rows + local < N
     met = []
-    for j in range(P):
-        local = j * rows + row
-        valid = bx * rows * P + local < N
-        if plan.variant == "small":
-            met += [local[valid] * C + c for c in range(C)]
-            continue
+    if plan.variant == "small":
+        met += [local[valid] * C + c for c in range(C)]
+    else:
         packs = C // plan.vector
         for k0 in range(0, packs, plan.lanes):
             k = k0 + lane
             ok = valid & (k < packs)
             met += [local[ok] * C + k[ok] * plan.vector + i for i in range(plan.vector)]
-    return np.bincount(np.concatenate(met), minlength=rows * P * C).reshape(rows * P, C)
+    return np.bincount(np.concatenate(met), minlength=rows * C).reshape(rows, C)
 
 
 def _check_common(plan, B, N, C, dtype, aligned, source_pixels):
-    P = getattr(plan, "points", 1)
-    per_block = plan.threads // plan.lanes * P
+    per_block = plan.threads // plan.lanes
     assert plan.threads % 32 == 0 and 0 < plan.threads <= 1024
     assert plan.lanes & (plan.lanes - 1) == 0 and plan.threads % plan.lanes == 0
     bx, by = plan.blocks
+    tiles = -(-N // per_block)
     assert by == B <= 65535 and 1 <= bx <= 2**31 - 1
-    assert bx * per_block >= N > (bx - 1) * per_block  # no block without a point
+    if getattr(plan, "shared_bytes", 0):
+        # a staged plane: bx blocks walk the tiles grid-stride (block t % bx
+        # takes tile t), one block an SM at most
+        assert bx <= tiles and B * bx <= max(B, twarp.SMS)
+    else:
+        assert bx == tiles  # a block for every tile, none without a point
     pack = 16 // dtype.itemsize
     if plan.variant == "small":
         assert C <= twarp.SMALL_C and plan.vector == 1 and plan.lanes == 1
@@ -113,26 +115,32 @@ def _check_common(plan, B, N, C, dtype, aligned, source_pixels):
         assert plan.vector == (pack if aligned and C % pack == 0 else 1)
     # every offset the kernel forms in its index type: the source plane, the
     # grid / dout / output rows, and the point index of the last block's row
-    largest = max(B * source_pixels * C, B * N * max(C, 2), bx * per_block)
+    largest = max(B * source_pixels * C, B * N * max(C, 2), N + bx * per_block)
     assert plan.index_bits == (32 if largest < 2**31 else 64)
     # the batch element is blockIdx.y and enters no point index, so every
-    # block of every batch element meets the points of one block of batch
-    # element 0; all but the last block cover a full tile as the first does,
-    # and small launches are replayed block by block
-    for b in (range(bx) if bx * P * plan.threads <= 50_000 else sorted({0, bx - 1})):
-        count = _replay_block(plan, N, C, b)
-        n_valid = min(per_block, N - b * per_block)
+    # batch element's tiles are batch element 0's; all but the last tile are
+    # covered as the first is, and small launches are replayed tile by tile
+    for t in (range(tiles) if tiles * plan.threads <= 50_000 else sorted({0, tiles - 1})):
+        count = _replay_tile(plan, N, C, t)
+        n_valid = min(per_block, N - t * per_block)
         assert (count[:n_valid] == 1).all() and (count[n_valid:] == 0).all()
 
 
 def _check_warp_plan(B, N, C, dtype, aligned, source_pixels):
     plan = twarp.warp_plan(B, N, C, dtype, aligned, source_pixels)
     _check_common(plan, B, N, C, dtype, aligned, source_pixels)
-    assert plan.threads == 256 and plan.points in twarp.POINTS_PER_THREAD
+    plane = source_pixels * C * dtype.itemsize
+    if plan.shared_bytes:
+        assert plan.variant == "small" and plan.threads == 1024 and N >= 1024
+        assert plane <= plan.shared_bytes <= min(48 * 1024, MAX_DYNAMIC_SHARED)
+        assert plan.shared_bytes % 16 == 0
+    else:
+        assert plan.threads == 256
+        assert plan.variant == "vector" or plane > 48 * 1024 or N < 1024
     if plan.variant == "vector":
         packs = C // plan.vector
-        # at most two packs a lane (the kernel issues both lanes' loads
-        # together), or a full block of lanes; two only on a large launch
+        # at most two packs a lane, or a full block of lanes; two only on a
+        # large launch
         assert plan.lanes < 2 * packs and (2 * plan.lanes >= packs or plan.lanes == 256)
         assert plan.lanes == 256 or 2 * plan.lanes > packs or B * N * plan.lanes >= 65536
     return plan
@@ -173,9 +181,15 @@ def test_plans_for_every_config(path, dtype):
 
 def test_plans_at_the_taichi_train_and_transfer_shapes():
     f32, bf16 = torch.float32, torch.bfloat16
-    # the source frame: one thread per point
+    # the source frame: one thread per point, the 48 KB plane in shared
+    # memory, a block of 1024 threads an SM walking the points
     assert twarp.warp_plan(1, CHUNK * 4096, 3, f32, True, 4096) == (
-        "small", 1, 1, 1, 256, (2048, 1), 32)
+        "small", 1, 1, 1024, (132, 1), 32, 49152)
+    assert twarp.warp_plan(32, 4096, 3, bf16, True, 4096) == (
+        "small", 1, 1, 1024, (4, 32), 32, 24576)
+    # a 256^2 frame does not fit: read in place
+    assert twarp.warp_plan(1, CHUNK * 65536, 3, f32, True, 65536) == (
+        "small", 1, 1, 256, (32768, 1), 32, 0)
     assert twarp.dgrid_plan(32, 4096, 3, bf16, True, 4096) == (
         "small", 1, 1, 256, (16, 32), 32)
     # 64 channels: 16 f32 or 8 bf16 packs, two a lane, summed in 3 or 2 steps
@@ -184,7 +198,7 @@ def test_plans_at_the_taichi_train_and_transfer_shapes():
     assert twarp.dgrid_plan(32, 1024, 64, bf16, True, 1024) == (
         "grouped", 8, 4, 256, (16, 32), 32)
     assert twarp.warp_plan(1, CHUNK * 1024, 64, bf16, True, 1024) == (
-        "vector", 8, 4, 1, 256, (2048, 1), 32)
+        "vector", 8, 4, 256, (2048, 1), 32, 0)
     # 256 f32 channels at 8x8: 2 packs a lane, 32 lanes, still one warp a point
     assert twarp.dgrid_plan(32, 64, 256, f32, True, 64).variant == "grouped"
     # C = 1024 at 2x2: 128 points, 256 f32 packs, 8 warps a point (one pack
