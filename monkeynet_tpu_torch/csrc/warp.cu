@@ -42,7 +42,6 @@
 namespace {
 
 constexpr int kSmallC = 4;
-constexpr int kMaxDynamicShared = 232448;  // bytes a block may use on sm_90 (227 KB)
 
 // The taps of output point p: whether each corner is read, its element
 // offset, and its weight (zero outside, as in the plain version).
@@ -138,26 +137,6 @@ warp_fwd_kernel_vector(const T* __restrict__ src, const float* __restrict__ grid
 
 enum Variant { kSmall = 0, kVector = 1 };
 
-// A launch that asks for more than 48 KB of dynamic shared memory is refused
-// unless the kernel was opted in on that device first (once per kernel and
-// device: the template gives every kernel its own flags).
-template <auto kernel>
-int opt_in(int shared_bytes) {
-  if (shared_bytes <= 48 * 1024) return 0;
-  static bool opted_in[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[device]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxDynamicShared);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[device] = true;
-  }
-  return 0;
-}
-
 template <typename T, typename I>
 int launch(const void* src_, const float* grid, void* out_, int H, int W, int C, long long N,
            int variant, int vector, int lanes_log2, dim3 blocks, int threads, int shared_bytes,
@@ -167,9 +146,9 @@ int launch(const void* src_, const float* grid, void* out_, int H, int W, int C,
   T* out = static_cast<T*>(out_);
   if (variant == kSmall && C <= kSmallC && shared_bytes > 0) {
     if (shared_bytes < (long long)H * W * C * sizeof(T)) return (int)cudaErrorInvalidValue;
-    constexpr auto kernel = warp_fwd_kernel_small<T, true, I>;
-    if (int err = opt_in<kernel>(shared_bytes)) return err;
-    kernel<<<blocks, threads, shared_bytes, s>>>(src, grid, out, H, W, C, (I)N);
+    if (int err = opt_in_shared_memory<warp_fwd_kernel_small<T, true, I>>()) return err;
+    warp_fwd_kernel_small<T, true, I><<<blocks, threads, shared_bytes, s>>>(src, grid, out, H, W,
+                                                                          C, (I)N);
   } else if (variant == kSmall && C <= kSmallC) {
     warp_fwd_kernel_small<T, false, I><<<blocks, threads, 0, s>>>(src, grid, out, H, W, C, (I)N);
   } else if (variant == kVector && shared_bytes == 0 && vector == kPack && C % kPack == 0) {

@@ -85,7 +85,7 @@ class WarpPlan(NamedTuple):
     threads: int  # threads per block
     blocks: tuple  # (x over a batch element's points, y = batch element)
     index_bits: int  # 32, or 64 where an element offset reaches 2^31
-    shared_bytes: int = 0  # the source plane staged in shared memory; 0: read in place
+    shared_bytes: int  # the source plane staged in shared memory; 0: read in place
 
 
 class DgridPlan(NamedTuple):
@@ -155,7 +155,7 @@ def warp_plan(B, N, C, dtype, aligned, source_pixels) -> WarpPlan:
         variant, vector = "vector", _pack(C, dtype, aligned)
         lanes = min(_THREADS, _lanes(B, N, C // vector))
     blocks, index_bits = _launch(B, N, C, source_pixels, _THREADS // lanes, "warp")
-    return WarpPlan(variant, vector, lanes, _THREADS, blocks, index_bits)
+    return WarpPlan(variant, vector, lanes, _THREADS, blocks, index_bits, 0)
 
 
 def dgrid_plan(B, N, C, dtype, aligned, source_pixels) -> DgridPlan:

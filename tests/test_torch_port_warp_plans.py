@@ -243,10 +243,6 @@ def test_plan_refuses_a_batch_past_the_launch_grid():
 
 # ---- (b) d_grid's partition and order of summation -------------------------
 
-def _f32(a):
-    return np.asarray(a, dtype=np.float32)
-
-
 def dgrid_mirror(img, grid, dout, plan):
     """d_grid of (B, H, W, C) img at (B, N, 2) grid with (B, N, C) dout, in
     numpy f32, channel by channel as `plan` deals them to lanes and summed in
