@@ -165,9 +165,10 @@ def dgrid_plan(B, N, C, dtype, aligned, source_pixels) -> DgridPlan:
     start on 16 bytes.
 
     C <= 4 is 'small': one thread per point. Otherwise `_lanes` threads per
-    point: 'grouped' while they are at most 32; 'split' above, where a point
-    has more packs than fit two to a lane of one warp and B x N x 32 threads
-    would not fill the card (else 'grouped' with 32 lanes)."""
+    point: 'grouped' while they are at most 32; 'split' above, which only a
+    point with more packs than a warp has lanes reaches, and only on a
+    launch that 32 lanes a point would not fill (else 'grouped' with 32
+    lanes, several packs each)."""
     if C <= SMALL_C:
         variant, vector, lanes = "small", 1, 1
     else:
