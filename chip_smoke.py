@@ -459,7 +459,7 @@ def heatmap_phase(device, gen) -> dict:
     return summary
 
 
-def _grid_off_integers(B, h, gen, margin=0.05):
+def grid_off_integers(B, h, gen, margin=0.05):
     """A (B, h, h, 2) grid over [-1.1, 1.1] (some samples outside) whose pixel
     coordinates stay `margin` away from every integer, so that every way of
     forming the coordinate picks the same corner."""
@@ -514,7 +514,7 @@ def warp_train_phase(device) -> dict:
             src = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
             dout = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
             grids = {
-                "random": _grid_off_integers(B, h, gen).to(device),
+                "random": grid_off_integers(B, h, gen).to(device),
                 # pixel coordinates on, or within an ulp of, the integers: the
                 # kernels must pick the corners the plain version picks, and
                 # d_grid must be its right difference
@@ -658,7 +658,7 @@ def warp_edge_phase(device) -> dict:
             src = src.view(2, 9, 17, C)
             dout = torch.randn(2 * 8 * 8 * C + 1, generator=gen).to(device, dtype)[1:]
             dout = dout.view(2, 8, 8, C)
-            grid = _grid_off_integers(2, 8, gen).to(device)
+            grid = grid_off_integers(2, 8, gen).to(device)
             plans = (warp.warp_plan(2, 64, C, dtype, False, 9 * 17),
                      warp.dgrid_plan(2, 64, C, dtype, False, 9 * 17))
             if any(p.vector != 1 for p in plans):
@@ -682,7 +682,7 @@ def warp_edge_phase(device) -> dict:
         for name, size, offset in (("in place", 128, 0), ("staged, misaligned", 64, 1)):
             src = torch.randn(size * size * 3 + offset, generator=gen).to(device, dtype)
             src = src[offset:].view(1, size, size, 3)
-            grid = _grid_off_integers(1, 32, gen).to(device)
+            grid = grid_off_integers(1, 32, gen).to(device)
             plan = warp.warp_plan(1, 32 * 32, 3, dtype, True, size * size)
             if (plan.shared_bytes > 0) != (name != "in place"):
                 raise AssertionError(f"warp edge {name}: planned {plan}")

@@ -1,8 +1,7 @@
-// Helpers shared by the port's kernels: the opt-in to more than 48 KB of
-// dynamic shared memory, element conversion, the bilinear taps and corner
-// loads of the three warp kernels, and block-wide reductions. Every exported
-// launcher returns cudaGetLastError() so the Python wrapper can raise on a
-// refused launch.
+// Helpers shared by the port's kernels: element conversion, the bilinear
+// taps and corner loads of the three warp kernels, and block-wide
+// reductions. Every exported launcher returns cudaGetLastError() so the
+// Python wrapper can raise on a refused launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -12,30 +11,6 @@
 
 // dtype codes passed from Python (must match ops/cuda/_build.py DTYPE_CODES).
 enum DtypeCode { kFloat32 = 0, kBFloat16 = 1 };
-
-// Bytes of dynamic shared memory a block may use on sm_90 (227 KB).
-constexpr int kMaxDynamicShared = 232448;
-
-// A launch that asks for more than 48 KB of dynamic shared memory is refused
-// (cudaErrorInvalidValue from cudaGetLastError, and nothing else says so)
-// unless the kernel was opted in on that device first. Call before every
-// launch: it opts in once per kernel and device (the template gives every
-// kernel its own flags).
-template <auto kernel>
-int opt_in_shared_memory() {
-  static bool opted_in[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[device]) {
-    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kMaxDynamicShared);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[device] = true;
-  }
-  return 0;
-}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }

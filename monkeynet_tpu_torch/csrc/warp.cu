@@ -146,7 +146,6 @@ int launch(const void* src_, const float* grid, void* out_, int H, int W, int C,
   T* out = static_cast<T*>(out_);
   if (variant == kSmall && C <= kSmallC && shared_bytes > 0) {
     if (shared_bytes < (long long)H * W * C * sizeof(T)) return (int)cudaErrorInvalidValue;
-    if (int err = opt_in_shared_memory<warp_fwd_kernel_small<T, true, I>>()) return err;
     warp_fwd_kernel_small<T, true, I><<<blocks, threads, shared_bytes, s>>>(src, grid, out, H, W,
                                                                           C, (I)N);
   } else if (variant == kSmall && C <= kSmallC) {

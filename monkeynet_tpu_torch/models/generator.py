@@ -78,13 +78,10 @@ class MotionTransferGenerator(nn.Module):
             deformation = identity_deformation(source_image, kp_driving)
 
         skips = [self._deform_input(skip, deformation) for skip in appearance_skips]
-        # The encoder's first skip is the source frame itself, so its warp is
-        # video_deformed: one warp fewer than the JAX package launches, with
-        # the same values.
-        if appearance_skips[0] is source_image:
-            video_deformed = skips[0]
-        else:
-            video_deformed = self._deform_input(source_image, deformation)
+        # The encoder's first skip is the source frame itself (Encoder.forward),
+        # so its warp is video_deformed: one warp fewer than the JAX package
+        # launches, with the same values.
+        video_deformed = skips[0]
         if self.kp_embedding_module is not None:
             embedding = self.kp_embedding_module(source_image, kp_driving, kp_source)
             skips = [

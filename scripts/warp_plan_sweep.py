@@ -68,7 +68,7 @@ def main() -> int:
                     grid = grid.reshape(1, CHUNK * h, h, 2).contiguous().cuda()
                     ident = ident.reshape(1, CHUNK * h, h, 2).contiguous().cuda()
                 else:
-                    grid = chip_smoke._grid_off_integers(B, h, gen).cuda()
+                    grid = chip_smoke.grid_off_integers(B, h, gen).cuda()
                 out = torch.empty(*grid.shape[:3], C, dtype=dtype, device="cuda")
                 ref = warp.grid_sample(src.float(), grid)
                 plan = warp.warp_plan(B, N, C, dtype, True, h * h)

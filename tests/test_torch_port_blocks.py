@@ -83,6 +83,13 @@ def test_encoder_matches_jax():
         np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=1e-5, rtol=1e-5)
 
 
+def test_encoder_first_skip_is_its_input():
+    """The generator returns the warp of skip 0 as video_deformed, the warp
+    of the source frame: that holds while skip 0 is the input itself."""
+    x = torch.from_numpy(_video(3))
+    assert tblocks.Encoder(4, 3, 3, 16)(x)[0] is x
+
+
 def test_batchnorm_train_statistics_match_jax():
     """Train mode: batch statistics to normalise, running statistics updated
     with the unbiased variance and torch momentum."""
