@@ -6,21 +6,29 @@
 At the six warps of the taichi-64^2 generator (its encoder skips), at a
 128-frame transfer chunk (batch 1) and at the batch-32 train step, in f32 and
 bf16: the forward with one, two or four packs a lane (C <= 4: the source
-plane staged in shared memory or read in place), and d_grid with one to
-eight packs a lane ('grouped' up to 32 lanes a point, 'split' above), each
-held against its plain version and timed L2-warm
-(chip_smoke.time_ms: CUDA-graph replays behind a sleep kernel). At the chunk
-shapes also what bounds the forward: its time on a random, the identity and
-a constant grid (every point at one pixel), and the time to zero-fill and to
-copy its output. Prints one JSON line per shape with the plan that
-ops/cuda/warp.py picks and the fastest option, and the card's name and power
-limit. Needs one CUDA card.
+plane staged in shared memory or read in place), each with P = 1, 2 and 4
+points a thread, and d_grid with one to eight packs a lane ('grouped' up to
+32 lanes a point, 'split' above), each held against its plain version and
+timed L2-warm (chip_smoke.time_ms: CUDA-graph replays behind a sleep
+kernel). At the chunk shapes also what bounds the forward: its time on a
+random, the identity and a constant grid (every point at one pixel), and the
+time to zero-fill and to copy its output. Prints one JSON line per shape
+with the plan that ops/cuda/warp.py picks and the fastest option, then the
+registers and spills that ptxas reported for each instantiation of the two
+kernels, and the card's name and power limit. Needs one CUDA card.
+
+The plan rules in ops/cuda/warp.py (lanes per point, P, staging, 'split')
+come from this sweep: rerun it after a change to csrc/warp.cu or
+csrc/warp_dgrid.cu, or for a new config's warp shapes (add them to SHAPES),
+and correct the rules where the planned option is no longer the fastest.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -28,6 +36,29 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = ((3, 64), (64, 32), (128, 16), (256, 8), (512, 4), (1024, 2))
 CHUNK = 128
+POINTS = (1, 2, 4)
+
+
+def ptxas_usage(log_text, kernels=("warp_fwd_kernel", "warp_dgrid_kernel")):
+    """{kernel instantiation: (registers, spill store bytes, spill load
+    bytes)} from nvcc's -Xptxas -v output, demangled where c++filt exists."""
+    usage, name = {}, None
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if any(k in m.group(1) for k in kernels) else None
+        elif name and "spill stores" in line:
+            spills = [int(x) for x in re.findall(r"(\d+) bytes spill", line)]
+            usage[name] = [None] + spills
+        elif name and "Used" in line and "registers" in line:
+            usage[name][0] = int(re.search(r"Used (\d+) registers", line).group(1))
+            name = None
+    if shutil.which("c++filt") and usage:
+        names = subprocess.run(["c++filt"], input="\n".join(usage), capture_output=True,
+                               text=True, timeout=60).stdout.splitlines()
+        if len(names) == len(usage):
+            usage = dict(zip(names, usage.values()))
+    return usage
 
 
 def main() -> int:
@@ -42,7 +73,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(REPO))
     import chip_smoke
-    from monkeynet_tpu_torch.ops.cuda import warp
+    from monkeynet_tpu_torch.ops.cuda import _build, warp
     from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
 
     chip_smoke.full_f32()
@@ -74,21 +105,23 @@ def main() -> int:
                 plan = warp.warp_plan(B, N, C, dtype, True, h * h)
                 row = {"dtype": str(dtype), "where": where, "shape": [B, h, h, C],
                        "points": B * N, "plan": plan._asdict(), "forward_us": {}}
-                if plan.variant == "small":
-                    # the plan (a plane of up to 48 KB staged in shared memory,
-                    # a block of 1024 threads an SM), the plane read in place
-                    # by a thread a point, and staged with 512 threads, two
-                    # blocks an SM
-                    options = {"planned": plan, "in_place": plan._replace(
-                        threads=256, shared_bytes=0, blocks=(-(-N // 256), B))}
-                    if plan.shared_bytes:
-                        options["staged,threads=512,per_sm=2"] = plan._replace(
-                            threads=512, blocks=(min(-(-N // 512), max(1, 2 * warp.SMS // B)), B))
-                else:
-                    most = 1 << (C // plan.vector - 1).bit_length()
-                    options = {f"lanes={n}": plan._replace(
-                        lanes=n, blocks=(-(-N // (plan.threads // n)), B))
-                        for n in sorted({min(256, most >> k) for k in (0, 1, 2)} - {0})}
+                options = {}
+                for P in POINTS:
+                    if plan.variant == "small":
+                        # the plane staged in shared memory (a block of 1024
+                        # threads an SM walking the points), and read in place
+                        # by blocks of 256 that cover the points once
+                        if plan.shared_bytes:
+                            options[f"staged,P={P}"] = plan._replace(points=P, blocks=(
+                                min(-(-N // (1024 * P)), max(1, warp.SMS // B)), B))
+                        options[f"in_place,P={P}"] = plan._replace(
+                            points=P, threads=256, shared_bytes=0,
+                            blocks=(-(-N // (256 * P)), B))
+                    else:
+                        most = 1 << (C // plan.vector - 1).bit_length()
+                        for n in sorted({min(256, most >> k) for k in (0, 1, 2)} - {0}):
+                            options[f"lanes={n},P={P}"] = plan._replace(
+                                lanes=n, points=P, blocks=(-(-N // (plan.threads // n * P)), B))
                 for name, option in options.items():
                     out.zero_()
                     warp._launch_forward(src, grid, out, option)
@@ -96,6 +129,7 @@ def main() -> int:
                     row["forward_us"][name] = us(
                         lambda o=option: warp._launch_forward(src, grid, out, o))
                 row["forward_best"] = min(row["forward_us"], key=row["forward_us"].get)
+                row["forward_planned"] = next((k for k, o in options.items() if o == plan), None)
                 if where == "chunk":
                     const = torch.full_like(ident, 0.013)
                     row["forward_by_grid_us"] = {
@@ -127,6 +161,10 @@ def main() -> int:
                                 lambda o=option: warp._launch_dgrid(src, grid, dout, dgrid, o))
                         row["dgrid_best"] = min(row["dgrid_us"], key=row["dgrid_us"].get)
                 print(json.dumps(row), flush=True)
+    log_text = (_build.BUILD_DIR / "build.log").read_text()
+    print(json.dumps({"ptxas": {k: {"registers": r, "spill_store_bytes": st,
+                                    "spill_load_bytes": ld}
+                                for k, (r, st, ld) in ptxas_usage(log_text).items()}}))
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60).stdout.strip())
     return 0
