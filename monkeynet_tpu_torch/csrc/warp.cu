@@ -11,8 +11,7 @@
 // and write C values; the source is read once from DRAM and then hit in L2
 // (50 MB holds every source plane of the main paths). What held the first
 // design back was not bytes but issue and latency: 64-bit divisions, 8-byte
-// bf16 packs, one grid read followed by dependent gathers with nothing to
-// overlap them, and at C = 3 three threads per point that each repeated the
+// bf16 packs, and at C = 3 three threads per point that each repeated the
 // grid read and the range tests. So:
 //
 // - 'small' (C <= 4, the source frame): one thread per point carries every
@@ -25,18 +24,15 @@
 //   16-byte packs (4 f32 or 8 bf16 channels) of the four corners, packs
 //   lane, lane + lanes, ...; a scalar instantiation (V = 1) takes a C that
 //   is no multiple of the pack or a pointer that is not 16-byte aligned.
-// Both take P points a thread (P from the plan): a block's tile of points
-// is P rows of `threads / lanes` points, so every load of a warp stays
-// coalesced, and a thread reads the grid entries of its P points before it
-// uses any, then issues all the gathers of its P points ('vector': of one
-// pack of each) before it combines them.
 // The launch is 2-D (blockIdx.y = batch element), so no thread divides, and
 // index arithmetic is 32-bit (I = int) unless the plan finds an offset at or
-// past 2^31 (I = long long). What is left at C >= 64 is the output stream:
-// at (64, 32) f32 the kernel takes ~1.35x the time a zero fill of its output
-// takes (PERF.md).
+// past 2^31 (I = long long). More points or more packs in flight per thread
+// were tried on an H100 and lost: the registers they take cost more
+// occupancy than the loads they overlap win back (PERF.md). What is left at
+// C >= 64 is the output stream: at (64, 32) f32 the kernel takes ~1.35x the
+// time a zero fill of its output takes.
 //
-// ops/cuda/warp.py `warp_plan` picks the variant, V, lanes, P, block, staging
+// ops/cuda/warp.py `warp_plan` picks the variant, V, lanes, block, staging
 // and launch shape. Coordinates and weights are f32 whatever the operand
 // type; accumulation is f32, corner by corner in the order (x0, y0),
 // (x1, y0), (x0, y1), (x1, y1), with an outside corner's weight zero as in
@@ -47,42 +43,16 @@ namespace {
 
 constexpr int kSmallC = 4;
 
-// The taps of a thread's P points first, first + rows, ...: whether each
-// corner is read (never for a point at or past N), its element offset, and
-// its weight (zero outside, as in the plain version). The P grid reads are
-// issued before any is used.
-template <int P, typename I>
-struct PointTaps {
-  bool valid[P];
-  bool in[P][4];
-  I off[P][4];
-  float w[P][4];
-};
-
-template <int P, typename I>
-__device__ __forceinline__ PointTaps<P, I> point_taps(const float* __restrict__ grid, I first,
-                                                      I rows, I N, int H, int W, int C) {
-  PointTaps<P, I> s;
-  float gx[P], gy[P];
+// The taps of output point p: whether each corner is read, its element
+// offset, and its weight (zero outside, as in the plain version).
+template <typename I>
+__device__ __forceinline__ void point_taps(const float* __restrict__ grid, I p, int H, int W,
+                                           int C, bool (&in)[4], I (&off)[4], float (&w)[4]) {
+  const Taps tp = bilinear_taps(grid[2 * p], grid[2 * p + 1], H, W);
+  corner_offsets<I>(tp, H, W, C, in, off);
+  const float ws[4] = {tp.wx0 * tp.wy0, tp.wx1 * tp.wy0, tp.wx0 * tp.wy1, tp.wx1 * tp.wy1};
 #pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const I p = first + (I)j * rows;
-    s.valid[j] = p < N;
-    gx[j] = s.valid[j] ? grid[2 * p] : 0.f;
-    gy[j] = s.valid[j] ? grid[2 * p + 1] : 0.f;
-  }
-#pragma unroll
-  for (int j = 0; j < P; ++j) {
-    const Taps tp = bilinear_taps(gx[j], gy[j], H, W);
-    corner_offsets<I>(tp, H, W, C, s.in[j], s.off[j]);
-    const float ws[4] = {tp.wx0 * tp.wy0, tp.wx1 * tp.wy0, tp.wx0 * tp.wy1, tp.wx1 * tp.wy1};
-#pragma unroll
-    for (int t = 0; t < 4; ++t) {
-      s.in[j][t] = s.in[j][t] && s.valid[j];
-      s.w[j][t] = s.in[j][t] ? ws[t] : 0.f;
-    }
-  }
-  return s;
+  for (int t = 0; t < 4; ++t) w[t] = in[t] ? ws[t] : 0.f;
 }
 
 // Copies the batch element's n-element source plane into shared memory, 16
@@ -98,8 +68,8 @@ __device__ __forceinline__ const T* stage_plane(const T* __restrict__ src, T* ds
 }
 
 // STAGED: the block reads the source plane from shared memory and walks the
-// tiles grid-stride; otherwise the launch has a thread for every P points.
-template <typename T, int P, bool STAGED, typename I>
+// points grid-stride; otherwise the launch has a thread for every point.
+template <typename T, bool STAGED, typename I>
 __global__ void __launch_bounds__(STAGED ? 1024 : 256)
 warp_fwd_kernel_small(const T* __restrict__ src, const float* __restrict__ grid,
                       T* __restrict__ out, int H, int W, int C, I N) {
@@ -109,142 +79,116 @@ warp_fwd_kernel_small(const T* __restrict__ src, const float* __restrict__ grid,
   grid += b * N * 2;
   out += b * N * C;
   const T* plane = STAGED ? stage_plane(src, reinterpret_cast<T*>(shared), H * W * C) : src;
-  const I rows = blockDim.x;
-  const I step = (I)gridDim.x * rows * P;
-  for (I first = (I)blockIdx.x * rows * P + threadIdx.x; first < N; first += step) {
-    const PointTaps<P, I> s = point_taps<P, I>(grid, first, rows, N, H, W, C);
-    T v[P][4][kSmallC];
+  const I step = (I)gridDim.x * blockDim.x;
+  for (I p = (I)blockIdx.x * blockDim.x + threadIdx.x; p < N; p += step) {
+    bool in[4];
+    I off[4];
+    float w[4];
+    point_taps<I>(grid, p, H, W, C, in, off, w);
+    T v[4][kSmallC];
 #pragma unroll
-    for (int j = 0; j < P; ++j)
+    for (int t = 0; t < 4; ++t)
 #pragma unroll
-      for (int t = 0; t < 4; ++t)
+      for (int c = 0; c < kSmallC; ++c)
+        v[t][c] = (c < C && in[t]) ? plane[off[t] + c] : from_float<T>(0.f);
 #pragma unroll
-        for (int c = 0; c < kSmallC; ++c)
-          v[j][t][c] = (c < C && s.in[j][t]) ? plane[s.off[j][t] + c] : from_float<T>(0.f);
+    for (int c = 0; c < kSmallC; ++c) {
+      if (c >= C) break;
+      float acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      if (!s.valid[j]) break;
-      T* o = out + (first + (I)j * rows) * C;
-#pragma unroll
-      for (int c = 0; c < kSmallC; ++c) {
-        if (c >= C) break;
-        float acc = 0.f;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) acc += to_float(v[j][t][c]) * s.w[j][t];
-        o[c] = from_float<T>(acc);
-      }
+      for (int t = 0; t < 4; ++t) acc += to_float(v[t][c]) * w[t];
+      out[p * C + c] = from_float<T>(acc);
     }
   }
 }
 
-template <typename T, int V, int P, typename I>
+template <typename T, int V, typename I>
 __global__ void __launch_bounds__(256)
 warp_fwd_kernel_vector(const T* __restrict__ src, const float* __restrict__ grid,
                        T* __restrict__ out, int H, int W, int C, I N, int lanes_log2) {
   const int lanes = 1 << lanes_log2;
   const int lane = threadIdx.x & (lanes - 1);
-  const I rows = blockDim.x >> lanes_log2;
-  const I first = (I)blockIdx.x * rows * P + (threadIdx.x >> lanes_log2);
-  if (first >= N) return;  // whole groups of lanes leave together
+  const I p = (I)blockIdx.x * (blockDim.x >> lanes_log2) + (threadIdx.x >> lanes_log2);
+  if (p >= N) return;  // whole groups of lanes leave together
   const I b = blockIdx.y;
   src += b * H * W * C;
   grid += b * N * 2;
-  out += b * N * C;
-  const PointTaps<P, I> s = point_taps<P, I>(grid, first, rows, N, H, W, C);
+  out += (b * N + p) * C;
+  bool in[4];
+  I off[4];
+  float w[4];
+  point_taps<I>(grid, p, H, W, C, in, off, w);
   const int packs = C / V;
   for (int k = lane; k < packs; k += lanes) {
-    Pack<T, V> v[P][4];
+    Pack<T, V> v[4];
 #pragma unroll
-    for (int j = 0; j < P; ++j)
+    for (int t = 0; t < 4; ++t) v[t] = load_pack<T, V, I>(src + k * V, off[t], in[t]);
+    Pack<T, V> r;
 #pragma unroll
-      for (int t = 0; t < 4; ++t) v[j][t] = load_pack<T, V, I>(src + k * V, s.off[j][t], s.in[j][t]);
+    for (int i = 0; i < V; ++i) {
+      float acc = 0.f;
 #pragma unroll
-    for (int j = 0; j < P; ++j) {
-      if (!s.valid[j]) break;
-      Pack<T, V> r;
-#pragma unroll
-      for (int i = 0; i < V; ++i) {
-        float acc = 0.f;
-#pragma unroll
-        for (int t = 0; t < 4; ++t) acc += to_float(v[j][t].v[i]) * s.w[j][t];
-        r.v[i] = from_float<T>(acc);
-      }
-      *reinterpret_cast<Pack<T, V>*>(out + (first + (I)j * rows) * C + k * V) = r;
+      for (int t = 0; t < 4; ++t) acc += to_float(v[t].v[i]) * w[t];
+      r.v[i] = from_float<T>(acc);
     }
+    *reinterpret_cast<Pack<T, V>*>(out + k * V) = r;
   }
 }
 
 enum Variant { kSmall = 0, kVector = 1 };
 
-template <typename T, int P, typename I>
-int launch_p(const T* src, const float* grid, T* out, int H, int W, int C, long long N,
-             int variant, int vector, int lanes_log2, dim3 blocks, int threads,
-             int shared_bytes, cudaStream_t s) {
+template <typename T, typename I>
+int launch(const void* src_, const float* grid, void* out_, int H, int W, int C, long long N,
+           int variant, int vector, int lanes_log2, dim3 blocks, int threads, int shared_bytes,
+           cudaStream_t s) {
   constexpr int kPack = 16 / sizeof(T);
+  const T* src = static_cast<const T*>(src_);
+  T* out = static_cast<T*>(out_);
   if (variant == kSmall && C <= kSmallC && shared_bytes > 0) {
     if (shared_bytes < (long long)H * W * C * sizeof(T)) return (int)cudaErrorInvalidValue;
-    warp_fwd_kernel_small<T, P, true, I><<<blocks, threads, shared_bytes, s>>>(src, grid, out, H,
-                                                                             W, C, (I)N);
+    warp_fwd_kernel_small<T, true, I><<<blocks, threads, shared_bytes, s>>>(src, grid, out, H, W,
+                                                                          C, (I)N);
   } else if (variant == kSmall && C <= kSmallC) {
-    warp_fwd_kernel_small<T, P, false, I><<<blocks, threads, 0, s>>>(src, grid, out, H, W, C,
-                                                                   (I)N);
+    warp_fwd_kernel_small<T, false, I><<<blocks, threads, 0, s>>>(src, grid, out, H, W, C, (I)N);
   } else if (variant == kVector && shared_bytes == 0 && vector == kPack && C % kPack == 0) {
-    warp_fwd_kernel_vector<T, kPack, P, I><<<blocks, threads, 0, s>>>(src, grid, out, H, W, C,
-                                                                      (I)N, lanes_log2);
+    warp_fwd_kernel_vector<T, kPack, I><<<blocks, threads, 0, s>>>(src, grid, out, H, W, C,
+                                                                   (I)N, lanes_log2);
   } else if (variant == kVector && shared_bytes == 0 && vector == 1) {
-    warp_fwd_kernel_vector<T, 1, P, I><<<blocks, threads, 0, s>>>(src, grid, out, H, W, C,
-                                                                  (I)N, lanes_log2);
+    warp_fwd_kernel_vector<T, 1, I><<<blocks, threads, 0, s>>>(src, grid, out, H, W, C, (I)N,
+                                                               lanes_log2);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return 0;
 }
 
-template <typename T, typename I>
-int launch(const void* src_, const float* grid, void* out_, int H, int W, int C, long long N,
-           int variant, int vector, int lanes_log2, int points, dim3 blocks, int threads,
-           int shared_bytes, cudaStream_t s) {
-  const T* src = static_cast<const T*>(src_);
-  T* out = static_cast<T*>(out_);
-  switch (points) {
-    case 1: return launch_p<T, 1, I>(src, grid, out, H, W, C, N, variant, vector, lanes_log2,
-                                     blocks, threads, shared_bytes, s);
-    case 2: return launch_p<T, 2, I>(src, grid, out, H, W, C, N, variant, vector, lanes_log2,
-                                     blocks, threads, shared_bytes, s);
-    case 4: return launch_p<T, 4, I>(src, grid, out, H, W, C, N, variant, vector, lanes_log2,
-                                     blocks, threads, shared_bytes, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
-}
-
 }  // namespace
 
 // The plan's fields (ops/cuda/warp.py WarpPlan): variant 0 'small' or 1
-// 'vector', channels a load, log2 of the threads per point, points per
-// thread, threads per block, blocks over one batch element's points, the
-// dynamic shared memory that holds the staged source plane (0: read in
-// place), and whether offsets need 64 bits.
+// 'vector', channels a load, log2 of the threads per point, threads per
+// block, blocks over one batch element's points, the dynamic shared memory
+// that holds the staged source plane (0: read in place), and whether
+// offsets need 64 bits.
 extern "C" int mk_warp_fwd(const void* src, const void* grid, void* out, int B, int H, int W,
                            int C, long long N, int dtype, int variant, int vector,
-                           int lanes_log2, int points, int threads, long long blocks_x,
-                           int shared_bytes, int index64, void* stream) {
+                           int lanes_log2, int threads, long long blocks_x, int shared_bytes,
+                           int index64, void* stream) {
   if (B == 0 || blocks_x == 0) return (int)cudaGetLastError();
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* g = static_cast<const float*>(grid);
   const dim3 blocks((unsigned)blocks_x, (unsigned)B);
   int status;
   if (dtype == kFloat32) {
-    status = index64
-        ? launch<float, long long>(src, g, out, H, W, C, N, variant, vector, lanes_log2, points,
-                                   blocks, threads, shared_bytes, s)
-        : launch<float, int>(src, g, out, H, W, C, N, variant, vector, lanes_log2, points,
-                             blocks, threads, shared_bytes, s);
+    status = index64 ? launch<float, long long>(src, g, out, H, W, C, N, variant, vector,
+                                                lanes_log2, blocks, threads, shared_bytes, s)
+                     : launch<float, int>(src, g, out, H, W, C, N, variant, vector,
+                                          lanes_log2, blocks, threads, shared_bytes, s);
   } else if (dtype == kBFloat16) {
     status = index64
-        ? launch<__nv_bfloat16, long long>(src, g, out, H, W, C, N, variant, vector, lanes_log2,
-                                           points, blocks, threads, shared_bytes, s)
+        ? launch<__nv_bfloat16, long long>(src, g, out, H, W, C, N, variant, vector,
+                                           lanes_log2, blocks, threads, shared_bytes, s)
         : launch<__nv_bfloat16, int>(src, g, out, H, W, C, N, variant, vector, lanes_log2,
-                                     points, blocks, threads, shared_bytes, s);
+                                     blocks, threads, shared_bytes, s);
   } else {
     status = (int)cudaErrorInvalidValue;
   }

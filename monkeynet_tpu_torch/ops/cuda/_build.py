@@ -39,8 +39,7 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    "mk_warp_fwd": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I, _L, _I, _I,
-                    _P),
+    "mk_warp_fwd": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _L, _I, _I, _P),
     "mk_warp_dsrc": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _P),
     "mk_warp_dgrid": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _L, _I, _P),
     "mk_combine_fwd": (_P, _P, _P, _P, _L, _I, _I, _I, _P),

@@ -82,9 +82,8 @@ class WarpPlan(NamedTuple):
     variant: str  # 'small' | 'vector'
     vector: int  # channels one load moves: 16 bytes' worth (4 f32, 8 bf16) or 1
     lanes: int  # threads per point, a power of two
-    points: int  # points per thread, P: 1, 2 or 4
     threads: int  # threads per block
-    blocks: tuple  # (x over a batch element's tiles of points, y = batch element)
+    blocks: tuple  # (x over a batch element's points, y = batch element)
     index_bits: int  # 32, or 64 where an element offset reaches 2^31
     shared_bytes: int  # the source plane staged in shared memory; 0: read in place
 
@@ -133,32 +132,30 @@ def _lanes(B, N, packs):
 
 
 def warp_plan(B, N, C, dtype, aligned, source_pixels) -> WarpPlan:
-    """Variant, pack, threads per point, points per thread and launch shape
-    of the forward kernel for a (B, H, W, C) source of `dtype` with H * W =
-    `source_pixels`, sampled at B x N points. `aligned`: whether the source
-    and the output start on 16 bytes.
+    """Variant, pack, threads per point and launch shape of the forward
+    kernel for a (B, H, W, C) source of `dtype` with H * W = `source_pixels`,
+    sampled at B x N points. `aligned`: whether the source and the output
+    start on 16 bytes.
 
     C <= 4 is 'small': one thread per point. Where the source plane fits
     48 KB and a batch element has at least 1024 points, the plane is staged
     in shared memory and a block of 1024 threads an SM walks the points
     (the gathers then come from shared memory). Otherwise 'vector', with
-    `_lanes` threads per point, at most a block of 256. A block's tile is
-    threads / lanes x P points."""
-    points = 1
+    `_lanes` threads per point, at most a block of 256."""
     if C <= SMALL_C:
         plane = source_pixels * C * dtype.itemsize
         if plane <= _STAGE_MAX_BYTES and N >= _STAGE_THREADS:
-            tiles = -(-N // (_STAGE_THREADS * points))
-            blocks, index_bits = _launch(B, N, C, source_pixels, _STAGE_THREADS * points, "warp",
+            tiles = -(-N // _STAGE_THREADS)
+            blocks, index_bits = _launch(B, N, C, source_pixels, _STAGE_THREADS, "warp",
                                          blocks_x=min(tiles, max(1, SMS // B)))
-            return WarpPlan("small", 1, 1, points, _STAGE_THREADS, blocks, index_bits,
+            return WarpPlan("small", 1, 1, _STAGE_THREADS, blocks, index_bits,
                             -(-plane // 16) * 16)
         variant, vector, lanes = "small", 1, 1
     else:
         variant, vector = "vector", _pack(C, dtype, aligned)
         lanes = min(_THREADS, _lanes(B, N, C // vector))
-    blocks, index_bits = _launch(B, N, C, source_pixels, _THREADS // lanes * points, "warp")
-    return WarpPlan(variant, vector, lanes, points, _THREADS, blocks, index_bits, 0)
+    blocks, index_bits = _launch(B, N, C, source_pixels, _THREADS // lanes, "warp")
+    return WarpPlan(variant, vector, lanes, _THREADS, blocks, index_bits, 0)
 
 
 def dgrid_plan(B, N, C, dtype, aligned, source_pixels) -> DgridPlan:
@@ -289,8 +286,7 @@ def _launch_forward(image, grid, out, plan):
             image.data_ptr(), grid.data_ptr(), out.data_ptr(), B, H, W, C,
             grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[image.dtype],
             _FWD_VARIANTS.index(plan.variant), plan.vector, plan.lanes.bit_length() - 1,
-            plan.points, plan.threads, plan.blocks[0], plan.shared_bytes,
-            int(plan.index_bits == 64),
+            plan.threads, plan.blocks[0], plan.shared_bytes, int(plan.index_bits == 64),
             _build.stream_of(image),
         )
     _build.check_launch(status, f"warp ({plan.variant})")

@@ -6,18 +6,18 @@
 At the six warps of the taichi-64^2 generator (its encoder skips), at a
 128-frame transfer chunk (batch 1) and at the batch-32 train step, in f32 and
 bf16: the forward with one, two or four packs a lane (C <= 4: the source
-plane staged in shared memory or read in place), each with P = 1, 2 and 4
-points a thread, and d_grid with one to eight packs a lane ('grouped' up to
-32 lanes a point, 'split' above), each held against its plain version and
-timed L2-warm (chip_smoke.time_ms: CUDA-graph replays behind a sleep
-kernel). At the chunk shapes also what bounds the forward: its time on a
-random, the identity and a constant grid (every point at one pixel), and the
-time to zero-fill and to copy its output. Prints one JSON line per shape
-with the plan that ops/cuda/warp.py picks and the fastest option, then the
-registers and spills that ptxas reported for each instantiation of the two
-kernels, and the card's name and power limit. Needs one CUDA card.
+plane staged in shared memory or read in place), and d_grid with one to
+eight packs a lane ('grouped' up to 32 lanes a point, 'split' above), each
+held against its plain version and timed L2-warm (chip_smoke.time_ms:
+CUDA-graph replays behind a sleep kernel). At the chunk shapes also what
+bounds the forward: its time on a random, the identity and a constant grid
+(every point at one pixel), and the time to zero-fill and to copy its
+output. Prints one JSON line per shape with the plan that ops/cuda/warp.py
+picks and the fastest option, then the registers and spills that ptxas
+reported for each instantiation of the two kernels, and the card's name and
+power limit. Needs one CUDA card.
 
-The plan rules in ops/cuda/warp.py (lanes per point, P, staging, 'split')
+The plan rules in ops/cuda/warp.py (lanes per point, staging, 'split')
 come from this sweep: rerun it after a change to csrc/warp.cu or
 csrc/warp_dgrid.cu, or for a new config's warp shapes (add them to SHAPES),
 and correct the rules where the planned option is no longer the fastest.
@@ -36,7 +36,6 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = ((3, 64), (64, 32), (128, 16), (256, 8), (512, 4), (1024, 2))
 CHUNK = 128
-POINTS = (1, 2, 4)
 
 
 def ptxas_usage(log_text, kernels=("warp_fwd_kernel", "warp_dgrid_kernel")):
@@ -105,23 +104,19 @@ def main() -> int:
                 plan = warp.warp_plan(B, N, C, dtype, True, h * h)
                 row = {"dtype": str(dtype), "where": where, "shape": [B, h, h, C],
                        "points": B * N, "plan": plan._asdict(), "forward_us": {}}
-                options = {}
-                for P in POINTS:
-                    if plan.variant == "small":
-                        # the plane staged in shared memory (a block of 1024
-                        # threads an SM walking the points), and read in place
-                        # by blocks of 256 that cover the points once
-                        if plan.shared_bytes:
-                            options[f"staged,P={P}"] = plan._replace(points=P, blocks=(
-                                min(-(-N // (1024 * P)), max(1, warp.SMS // B)), B))
-                        options[f"in_place,P={P}"] = plan._replace(
-                            points=P, threads=256, shared_bytes=0,
-                            blocks=(-(-N // (256 * P)), B))
-                    else:
-                        most = 1 << (C // plan.vector - 1).bit_length()
-                        for n in sorted({min(256, most >> k) for k in (0, 1, 2)} - {0}):
-                            options[f"lanes={n},P={P}"] = plan._replace(
-                                lanes=n, points=P, blocks=(-(-N // (plan.threads // n * P)), B))
+                if plan.variant == "small":
+                    # the plane staged in shared memory (a block of 1024
+                    # threads an SM walking the points), and read in place by
+                    # blocks of 256 that cover the points once
+                    options = {"in_place": plan._replace(
+                        threads=256, shared_bytes=0, blocks=(-(-N // 256), B))}
+                    if plan.shared_bytes:
+                        options["staged"] = plan
+                else:
+                    most = 1 << (C // plan.vector - 1).bit_length()
+                    options = {f"lanes={n}": plan._replace(
+                        lanes=n, blocks=(-(-N // (plan.threads // n)), B))
+                        for n in sorted({min(256, most >> k) for k in (0, 1, 2)} - {0})}
                 for name, option in options.items():
                     out.zero_()
                     warp._launch_forward(src, grid, out, option)

@@ -74,31 +74,28 @@ def _config_warp_shapes(path):
 
 def _replay_tile(plan, N, C, tile):
     """How often the threads of a block meet each (point, channel) of the
-    tile-th tile of the launch: threads / lanes x P points, P rows of
-    threads / lanes (d_grid: P = 1). Point j of a group of lanes is its row
-    j; lane l of a point takes packs l, l + lanes, ... of `vector` channels
-    ('small': every channel). A thread meets no point at or past N."""
+    tile of threads / lanes points it takes at once, the tile-th of the
+    launch: lane l of a point takes packs l, l + lanes, ... of `vector`
+    channels ('small': every channel). A thread meets no point at or past
+    N."""
     rows = plan.threads // plan.lanes
-    P = getattr(plan, "points", 1)
     tid = np.arange(plan.threads)
-    group, lane = tid // plan.lanes, tid % plan.lanes
+    local, lane = tid // plan.lanes, tid % plan.lanes
+    valid = tile * rows + local < N
     met = []
-    for j in range(P):
-        local = group + j * rows
-        valid = tile * rows * P + local < N
-        if plan.variant == "small":
-            met += [local[valid] * C + c for c in range(C)]
-        else:
-            packs = C // plan.vector
-            for k0 in range(0, packs, plan.lanes):
-                k = k0 + lane
-                ok = valid & (k < packs)
-                met += [local[ok] * C + k[ok] * plan.vector + i for i in range(plan.vector)]
-    return np.bincount(np.concatenate(met), minlength=rows * P * C).reshape(rows * P, C)
+    if plan.variant == "small":
+        met += [local[valid] * C + c for c in range(C)]
+    else:
+        packs = C // plan.vector
+        for k0 in range(0, packs, plan.lanes):
+            k = k0 + lane
+            ok = valid & (k < packs)
+            met += [local[ok] * C + k[ok] * plan.vector + i for i in range(plan.vector)]
+    return np.bincount(np.concatenate(met), minlength=rows * C).reshape(rows, C)
 
 
 def _check_common(plan, B, N, C, dtype, aligned, source_pixels):
-    per_block = plan.threads // plan.lanes * getattr(plan, "points", 1)
+    per_block = plan.threads // plan.lanes
     assert plan.threads % 32 == 0 and 0 < plan.threads <= 1024
     assert plan.lanes & (plan.lanes - 1) == 0 and plan.threads % plan.lanes == 0
     bx, by = plan.blocks
@@ -187,12 +184,12 @@ def test_plans_at_the_taichi_train_and_transfer_shapes():
     # the source frame: one thread per point, the 48 KB plane in shared
     # memory, a block of 1024 threads an SM walking the points
     assert twarp.warp_plan(1, CHUNK * 4096, 3, f32, True, 4096) == (
-        "small", 1, 1, 1, 1024, (132, 1), 32, 49152)
+        "small", 1, 1, 1024, (132, 1), 32, 49152)
     assert twarp.warp_plan(32, 4096, 3, bf16, True, 4096) == (
-        "small", 1, 1, 1, 1024, (4, 32), 32, 24576)
+        "small", 1, 1, 1024, (4, 32), 32, 24576)
     # a 256^2 frame does not fit: read in place
     assert twarp.warp_plan(1, CHUNK * 65536, 3, f32, True, 65536) == (
-        "small", 1, 1, 1, 256, (32768, 1), 32, 0)
+        "small", 1, 1, 256, (32768, 1), 32, 0)
     assert twarp.dgrid_plan(32, 4096, 3, bf16, True, 4096) == (
         "small", 1, 1, 256, (16, 32), 32)
     # 64 channels: 16 f32 or 8 bf16 packs, two a lane, summed in 3 or 2 steps
@@ -201,7 +198,7 @@ def test_plans_at_the_taichi_train_and_transfer_shapes():
     assert twarp.dgrid_plan(32, 1024, 64, bf16, True, 1024) == (
         "grouped", 8, 4, 256, (16, 32), 32)
     assert twarp.warp_plan(1, CHUNK * 1024, 64, bf16, True, 1024) == (
-        "vector", 8, 4, 1, 256, (2048, 1), 32, 0)
+        "vector", 8, 4, 256, (2048, 1), 32, 0)
     # 256 f32 channels at 8x8: 2 packs a lane, 32 lanes, still one warp a point
     assert twarp.dgrid_plan(32, 64, 256, f32, True, 64).variant == "grouped"
     # C = 1024 at 2x2: 128 points, 256 f32 packs, 8 warps a point (one pack
