@@ -16,10 +16,11 @@ Phases, each of which raises on failure:
      warp's forward, d_src and d_grid kernels at the warps of the
      taichi-64^2 train step (batch 32), random and identity
      (integer-coordinate) grids, f32 and bf16, the plans and cold times of
-     the forward and d_grid, F.grid_sample's backward for the grid alone,
-     the input alone and both; the forward and d_grid with scalar loads and
-     with 64-bit offsets (warp_edge_phase); the combine's closed-form
-     backward against autograd;
+     all three, F.grid_sample's backward for the grid alone, the input
+     alone and both; the three with scalar loads and with 64-bit offsets,
+     and d_src's 'global' variant and its 'shared' one past 48 KB of shared
+     memory at the 256^2 configs' skips (warp_edge_phase); the combine's
+     closed-form backward against autograd;
   3. slice parity, kernels on the card against the plain versions on the
      CPU from one state_dict: a 4-frame transfer at taichi width, and one
      train step at taichi width and batch 2 (metrics, the gradients of the
@@ -475,7 +476,7 @@ def warp_train_phase(device) -> dict:
     taichi-64^2 train step (batch 32, one driving frame), f32 and bf16, each
     against the plain version (grid_sample and its autograd, in f32 on the
     same inputs) on a random grid and on the identity grid, with the plans
-    of the forward and d_grid, and their L2-warm and cold times. Beside them
+    of the three, and their L2-warm and cold times. Beside them
     (f32) F.grid_sample's backward three ways: with only the grid leaf
     requiring grad (d_grid's own function), with only the input leaf (d_src's)
     and with both. The summed times, bytes and operations cover the launches
@@ -493,10 +494,9 @@ def warp_train_phase(device) -> dict:
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
         es = 2 if bf16 else 4
-        tot = {n: {"ms": 0.0, "plain_ms": 0.0, "library_ms": None if bf16 else 0.0,
-                   "bytes": 0.0, "flops": 0.0, "err": 0.0} for n in names}
-        for n in ("warp_train", "warp_dgrid"):
-            tot[n]["cold_ms"] = 0.0
+        tot = {n: {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0,
+                   "library_ms": None if bf16 else 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+               for n in names}
         for n in ("warp_dsrc", "warp_dgrid"):
             tot[n]["library_both_ms"] = None if bf16 else 0.0
         tot["warp_dsrc"]["extra_bytes"] = 0.0
@@ -504,7 +504,7 @@ def warp_train_phase(device) -> dict:
 
         def tol_of(ref, rounded=False):
             # f32 results: sums of up to 4 * 1024 terms in another order
-            # (and, for d_src, atomics in no fixed order); results rounded to
+            # (and, for d_src, points binned in no fixed order); results rounded to
             # bf16 (the bf16 forward and d_src; d_grid is always f32): 2^-8
             scale = max(1.0, ref.abs().max().item())
             return (2.0**-8 if rounded else 2e-5) * scale
@@ -555,14 +555,18 @@ def warp_train_phase(device) -> dict:
             }
             cold = [(src.clone(), grid.clone(), dout.clone())
                     for _ in range(cold_copies(work["warp_train"][0]))]
+            dsrc_plan = warp.dsrc_plan(B, h * h, C, dtype, True, (h, h))
             row = {"kernel": "warp fwd/d_src/d_grid", "dtype": str(dtype), "shape": list(shape),
                    "fwd_plan": warp.warp_plan(B, h * h, C, dtype, True, h * h)._asdict(),
+                   "dsrc_plan": dsrc_plan._asdict(),
                    "dgrid_plan": warp.dgrid_plan(B, h * h, C, dtype, True, h * h)._asdict(),
                    "max_abs_err": errs,
                    "fwd_ms": time_ms(lambda: warp.warp(src, grid)),
                    "fwd_cold_ms": time_cold_ms([lambda s=s, g=g: warp.warp(s, g)
                                                 for s, g, _ in cold], work["warp_train"][0]),
                    "dsrc_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape)),
+                   "dsrc_cold_ms": time_cold_ms([lambda g=g, d=d: warp.warp_dsrc(g, d, shape)
+                                                 for _, g, d in cold], work["warp_dsrc"][0]),
                    "dgrid_ms": time_ms(lambda: warp.warp_dgrid(src, grid, dout)),
                    "dgrid_cold_ms": time_cold_ms([lambda s=s, g=g, d=d: warp.warp_dgrid(s, g, d)
                                                   for s, g, d in cold], work["warp_dgrid"][0]),
@@ -572,9 +576,11 @@ def warp_train_phase(device) -> dict:
                    "dgrid_plain_ms": time_ms(lambda: warp.warp_dgrid_plain(src, grid, dout)),
                    "library_fwd_ms": None, "library_dsrc_ms": None, "library_dgrid_ms": None,
                    "library_bwd_ms": None,
-                   # what d_src moves beyond its bound: the zero fill of its f32
-                   # buffer and, in bf16, the cast's read of that buffer
-                   "dsrc_extra_bytes": plane * (8 if bf16 else 4)}
+                   # what d_src moves beyond its bound: nothing for 'shared';
+                   # for 'global' the zero fill of its f32 buffer and, in
+                   # bf16, the cast's read of that buffer
+                   "dsrc_extra_bytes": 0 if dsrc_plan.variant == "shared"
+                   else plane * (8 if bf16 else 4)}
             del cold
             if not bf16:
                 # F.grid_sample's backward; its values are compared only on the
@@ -622,8 +628,7 @@ def warp_train_phase(device) -> dict:
                 tot[n]["plain_ms"] += row[f"{key}_plain_ms"]
                 tot[n]["bytes"] += work[n][0]
                 tot[n]["flops"] += work[n][1]
-                if "cold_ms" in tot[n]:
-                    tot[n]["cold_ms"] += row[f"{key}_cold_ms"]
+                tot[n]["cold_ms"] += row[f"{key}_cold_ms"]
                 if n == "warp_dsrc":
                     tot[n]["extra_bytes"] += row["dsrc_extra_bytes"]
                 if not bf16:
@@ -636,14 +641,18 @@ def warp_train_phase(device) -> dict:
 
 
 def warp_edge_phase(device) -> dict:
-    """The forward and d_grid kernels where the taichi paths do not take
-    them, against their plain versions: scalar loads (a source and dout one
+    """The three warp kernels where the taichi paths do not take them,
+    against their plain versions: scalar loads (a source and dout one
     element off 16 bytes at C = 64; C = 5 and 12, no multiple of the bf16
     pack, the first of the f32 one), the small forward with its plane read
-    in place and staged from a misaligned plane, and 64-bit offsets (2^21 points of 1024
-    bf16 channels, 2^31 elements of output and of dout, held against the
-    plain version on the first and the last two rows of points). Then every
-    variant of both kernels must have launched in the phases so far."""
+    in place and staged from a misaligned plane, d_src at two skips of the
+    256^2 configs' train step (batch 20): 'global' at (128^2, 64), where no
+    slice fits a block, and 'shared' past 48 KB of shared memory at
+    (64^2, 128), both dtypes, and 64-bit offsets (2^21 points of 1024 bf16
+    channels, 2^31 elements of output and of dout, held against the plain
+    version on the first and the last two rows of points; for d_src, dout
+    is zero elsewhere). Then every variant of the three kernels must have
+    launched in the phases so far."""
     import torch
 
     from monkeynet_tpu_torch.ops.cuda import warp
@@ -660,17 +669,22 @@ def warp_edge_phase(device) -> dict:
             dout = dout.view(2, 8, 8, C)
             grid = grid_off_integers(2, 8, gen).to(device)
             plans = (warp.warp_plan(2, 64, C, dtype, False, 9 * 17),
-                     warp.dgrid_plan(2, 64, C, dtype, False, 9 * 17))
+                     warp.dgrid_plan(2, 64, C, dtype, False, 9 * 17),
+                     warp.dsrc_plan(2, 64, C, dtype, False, (9, 17)))
             if any(p.vector != 1 for p in plans):
                 raise AssertionError(f"warp edge: planned {plans}, expected scalar loads")
             ref = warp.grid_sample(src.float(), grid)
             dref = warp.warp_dgrid_plain(src.float(), grid, dout.float())
+            sref = warp.warp_dsrc_plain(grid, dout.float(), tuple(src.shape))
             errs = {"fwd": max_err(warp.warp(src, grid), ref),
-                    "dgrid": max_err(warp.warp_dgrid(src, grid, dout), dref)}
+                    "dgrid": max_err(warp.warp_dgrid(src, grid, dout), dref),
+                    "dsrc": max_err(warp.warp_dsrc(grid, dout, tuple(src.shape)), sref)}
             check(f"warp edge fwd {dtype} C={C}", errs["fwd"],
                   rounded * max(1.0, ref.abs().max().item()))
             check(f"warp edge dgrid {dtype} C={C}", errs["dgrid"],
                   2e-5 * max(1.0, dref.abs().max().item()))
+            check(f"warp edge dsrc {dtype} C={C}", errs["dsrc"],
+                  rounded * max(1.0, sref.abs().max().item()))
             result["scalar"].append({"dtype": str(dtype), "C": C, "max_abs_err": errs,
                                      "plans": [p._asdict() for p in plans]})
 
@@ -692,6 +706,28 @@ def warp_edge_phase(device) -> dict:
             check(f"warp edge small {name} {dtype}", err, tol)
             result["small"].append({"case": name, "dtype": str(dtype), "max_abs_err": err,
                                     "plan": plan._asdict()})
+
+    # d_src at two skips of the 256^2 configs' train step (batch 20)
+    result["dsrc_256"] = []
+    for dtype in (torch.float32, torch.bfloat16):
+        rounded = 2.0**-8 if dtype == torch.bfloat16 else 2e-5
+        for (C, h), want in (((64, 128), "global"), ((128, 64), "shared")):
+            shape = (20, h, h, C)
+            dout = torch.randn(shape, generator=gen).to(device, dtype)
+            grid = grid_off_integers(20, h, gen).to(device)
+            plan = warp.dsrc_plan(20, h * h, C, dtype, True, (h, h))
+            if plan.variant != want or (want == "shared" and plan.shared_bytes <= 48 * 1024):
+                raise AssertionError(f"warp edge d_src {shape}: planned {plan}")
+            ref = warp.warp_dsrc_plain(grid, dout.float(), shape)
+            got = warp.warp_dsrc(grid, dout, shape)
+            err = max_err(got, ref)
+            check(f"warp edge dsrc {want} {dtype} {shape}", err,
+                  rounded * max(1.0, ref.abs().max().item()))
+            if got.dtype != dtype:
+                raise AssertionError(f"warp edge d_src {shape}: result in {got.dtype}")
+            result["dsrc_256"].append({"dtype": str(dtype), "shape": list(shape),
+                                       "max_abs_err": err, "plan": plan._asdict()})
+            del dout, ref, got
 
     n, C, dtype = 2**21, 1024, torch.bfloat16
     src = torch.randn(1, 2, 2, C, generator=gen).to(device, dtype)
@@ -715,10 +751,24 @@ def warp_edge_phase(device) -> dict:
         errs[f"dgrid.{name}"] = max_err(dgrid[:, rows], ref)
         check(f"warp edge dgrid 64-bit {name}", errs[f"dgrid.{name}"],
               2e-5 * max(1.0, ref.abs().max().item()))
-    del dout, dgrid
+    del dgrid
+    # d_src into a 32^2 plane of the same channels, dout zero but for those
+    # rows: the kernel must read the last rows at offsets past 2^31
+    dout[:, 2:-2] = 0
+    shape = (1, 32, 32, C)
+    dsrc_plan = warp.dsrc_plan(1, n, C, dtype, True, (32, 32))
+    if dsrc_plan.index_bits != 64:
+        raise AssertionError(f"warp edge: planned {dsrc_plan}, expected 64-bit offsets")
+    rows = torch.cat([torch.arange(2), torch.arange(n // 1024 - 2, n // 1024)]).to(device)
+    ref = warp.warp_dsrc_plain(grid[:, rows], dout[:, rows].float(), shape)
+    errs["dsrc.first_and_last"] = max_err(warp.warp_dsrc(grid, dout, shape), ref)
+    check("warp edge dsrc 64-bit", errs["dsrc.first_and_last"],
+          2.0**-8 * max(1.0, ref.abs().max().item()))
+    del dout
     result["index64"] = {"points": n, "channels": C, "max_abs_err": errs,
-                         "plans": [p._asdict() for p in plans]}
+                         "plans": [p._asdict() for p in (*plans, dsrc_plan)]}
     launched = {"warp": dict(warp.warp.launches_by_variant),
+                "warp_dsrc": dict(warp.warp_dsrc.launches_by_variant),
                 "warp_dgrid": dict(warp.warp_dgrid.launches_by_variant)}
     if min(min(v.values()) for v in launched.values()) <= 0:
         raise AssertionError(f"warp: a variant was never launched: {launched}")
@@ -1121,7 +1171,8 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -
                             "bf16": numbers(summary["warp_train_bf16"])}
         if name in ("warp_dsrc", "warp_dgrid"):
             # extra_bytes (d_src): beyond the bound's bytes, the zero fill and,
-            # in bf16, the cast's read
+            # in bf16, the cast's read of the 'global' variant; 0 where every
+            # call is 'shared'
             leaf = "input" if name == "warp_dsrc" else "grid"
             row["library"] = (f"F.grid_sample backward with only the {leaf} requiring grad; "
                               "library_both_ms: both gradients in one call")

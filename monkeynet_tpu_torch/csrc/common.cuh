@@ -1,7 +1,8 @@
 // Helpers shared by the port's kernels: element conversion, the bilinear
-// taps and corner loads of the three warp kernels, and block-wide
-// reductions. Every exported launcher returns cudaGetLastError() so the
-// Python wrapper can raise on a refused launch.
+// taps and corner loads of the three warp kernels, block-wide reductions,
+// asynchronous copies to shared memory, and the opt-in to more than 48 KB of
+// dynamic shared memory. Every exported launcher returns cudaGetLastError()
+// so the Python wrapper can raise on a refused launch.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -11,6 +12,29 @@
 
 // dtype codes passed from Python (must match ops/cuda/_build.py DTYPE_CODES).
 enum DtypeCode { kFloat32 = 0, kBFloat16 = 1 };
+
+// The most dynamic shared memory a block may use on sm_90 (227 KB).
+constexpr int kMaxDynamicShared = 232448;
+
+// A launch that asks for more than 48 KB of dynamic shared memory is refused
+// (cudaErrorInvalidValue from cudaGetLastError, and nothing else says so)
+// unless the kernel was opted in on that device first. This opts `Kernel` in
+// to kMaxDynamicShared, once per device, and returns a cudaError_t.
+template <auto Kernel>
+int opt_in_shared_memory() {
+  static bool opted_in[64] = {};
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
+  if (!opted_in[device]) {
+    err = cudaFuncSetAttribute(Kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kMaxDynamicShared);
+    if (err != cudaSuccess) return (int)err;
+    opted_in[device] = true;
+  }
+  return 0;
+}
 
 __device__ __forceinline__ float to_float(float v) { return v; }
 __device__ __forceinline__ float to_float(__nv_bfloat16 v) { return __bfloat162float(v); }
@@ -26,6 +50,27 @@ template <typename T, int V>
 struct alignas(sizeof(T) * V) Pack {
   T v[V];
 };
+
+// 16-byte copies from device to shared memory that bypass the registers
+// (cp.async, sm_80 and later), in commit groups.
+__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
+  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most `pending` of this thread's commit groups are in flight.
+__device__ __forceinline__ void cp_async_wait(int pending) {
+  switch (pending) {
+    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
+    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
+    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
+    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
+  }
+}
 
 // Bilinear sampling of an (H, W) plane at grid coordinates (gx, gy) in
 // [-1, 1], align_corners=True: the top-left corner (x0, y0) as floats and the

@@ -75,26 +75,6 @@ namespace {
 constexpr int kPlaneThreads = 256;
 constexpr int kStages = 4;
 constexpr int kBatch = 4;  // sweeps of pass 2 read together
-constexpr int kMaxDynamicShared = 232448;  // 227 KB, the most a block may use on sm_90
-
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem) {
-  const unsigned addr = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(addr), "l"(gmem) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-// Waits until at most `pending` of this thread's commit groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  switch (pending) {
-    case 0: asm volatile("cp.async.wait_group 0;\n" ::: "memory"); break;
-    case 1: asm volatile("cp.async.wait_group 1;\n" ::: "memory"); break;
-    case 2: asm volatile("cp.async.wait_group 2;\n" ::: "memory"); break;
-    default: asm volatile("cp.async.wait_group 3;\n" ::: "memory"); break;
-  }
-}
 
 // Reduces NV per-thread values over the threads of each keypoint (thread t
 // holds keypoint t % K) and hands every thread its keypoint's totals. The
@@ -377,23 +357,11 @@ __global__ void softargmax_plane_kernel(const T* __restrict__ logits, float* __r
   }
 }
 
-// A launch that asks for more than 48 KB of dynamic shared memory is refused
-// (cudaErrorInvalidValue from cudaGetLastError, and nothing else says so)
-// unless the kernel was opted in on that device first.
 template <typename T, bool kFixedCol>
 int launch_staged_as(const void* logits, void* stats, long long N, int H, int W, int K,
                   float temperature, int threads, int shared_bytes, cudaStream_t s) {
-  static bool opted_in[64] = {};
-  int device = 0;
-  cudaError_t err = cudaGetDevice(&device);
-  if (err != cudaSuccess) return (int)err;
-  if (device < 0 || device >= 64) return (int)cudaErrorInvalidDevice;
-  if (!opted_in[device]) {
-    err = cudaFuncSetAttribute(softargmax_staged_kernel<T, kFixedCol>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, kMaxDynamicShared);
-    if (err != cudaSuccess) return (int)err;
-    opted_in[device] = true;
-  }
+  const int err = opt_in_shared_memory<softargmax_staged_kernel<T, kFixedCol>>();
+  if (err) return err;
   softargmax_staged_kernel<T, kFixedCol><<<(unsigned)N, threads, shared_bytes, s>>>(
       static_cast<const T*>(logits), static_cast<float*>(stats), H, W, K, temperature);
   return (int)cudaGetLastError();

@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
-"""Sweep the launch plans of the warp forward and d_grid kernels on one card.
+"""Sweep the launch plans of the warp forward, d_src and d_grid kernels on one card.
 
     python3 scripts/warp_plan_sweep.py [--reps 50]
 
 At the six warps of the taichi-64^2 generator (its encoder skips), at a
 128-frame transfer chunk (batch 1) and at the batch-32 train step, in f32 and
 bf16: the forward with one, two or four packs a lane (C <= 4: the source
-plane staged in shared memory or read in place), and d_grid with one to
-eight packs a lane ('grouped' up to 32 lanes a point, 'split' above), each
-held against its plain version and timed L2-warm (chip_smoke.time_ms:
+plane staged in shared memory or read in place), d_grid with one to eight
+packs a lane ('grouped' up to 32 lanes a point, 'split' above), and d_src
+(the skips past the source frame) with half, one, two and four times the
+planned channels a block, 128, 256 or 512 threads a block and a gather
+tile of one pixel or a 2 x 2 quad, each held
+against its plain version and timed L2-warm (chip_smoke.time_ms:
 CUDA-graph replays behind a sleep kernel). At the chunk shapes also what
 bounds the forward: its time on a random, the identity and a constant grid
 (every point at one pixel), and the time to zero-fill and to copy its
@@ -17,10 +20,11 @@ picks and the fastest option, then the registers and spills that ptxas
 reported for each instantiation of the two kernels, and the card's name and
 power limit. Needs one CUDA card.
 
-The plan rules in ops/cuda/warp.py (lanes per point, staging, 'split')
-come from this sweep: rerun it after a change to csrc/warp.cu or
-csrc/warp_dgrid.cu, or for a new config's warp shapes (add them to SHAPES),
-and correct the rules where the planned option is no longer the fastest.
+The plan rules in ops/cuda/warp.py (lanes per point, staging, 'split', the
+d_src slice and block) come from this sweep: rerun it after a change to
+csrc/warp.cu, csrc/warp_dsrc.cu or csrc/warp_dgrid.cu, or for a new config's
+warp shapes (add them to SHAPES), and correct the rules where the planned
+option is no longer the fastest.
 """
 
 from __future__ import annotations
@@ -38,7 +42,7 @@ SHAPES = ((3, 64), (64, 32), (128, 16), (256, 8), (512, 4), (1024, 2))
 CHUNK = 128
 
 
-def ptxas_usage(log_text, kernels=("warp_fwd_kernel", "warp_dgrid_kernel")):
+def ptxas_usage(log_text, kernels=("warp_fwd_kernel", "warp_dsrc_kernel", "warp_dgrid_kernel")):
     """{kernel instantiation: (registers, spill store bytes, spill load
     bytes)} from nvcc's -Xptxas -v output, demangled where c++filt exists."""
     usage, name = {}, None
@@ -80,6 +84,37 @@ def main() -> int:
 
     def us(fn):
         return chip_smoke.time_ms(fn, reps=args.reps) * 1e3
+
+    def dsrc_options(grid, dout, dtype, h):
+        """d_src under its plan and with other slices and block sizes."""
+        shape = (dout.shape[0], h, h, dout.shape[-1])
+        B, N, C = shape[0], h * h, shape[-1]
+        plan = warp.dsrc_plan(B, N, C, dtype, True, (h, h))
+        ref = warp.warp_dsrc_plain(grid, dout.float(), shape)
+        out = torch.empty(shape, dtype=dtype, device="cuda")
+        timed = {}
+        for channels in sorted({plan.channels >> 1, plan.channels, plan.channels << 1,
+                                plan.channels << 2}):
+            if channels < plan.vector or channels > C:
+                continue
+            for threads in (128, 256, 512):
+                for tile in (1, 2):
+                    option = plan._replace(
+                        channels=channels, threads=threads, tile=tile,
+                        lanes=min(threads, 1 << (channels // plan.vector - 1).bit_length()),
+                        blocks=(-(-C // channels), B),
+                        shared_bytes=warp.dsrc_shared_bytes(h, h, channels, plan.chunk,
+                                                            dtype.itemsize, N > plan.chunk))
+                    if option.shared_bytes > warp.MAX_DYNAMIC_SHARED:
+                        continue
+                    warp._launch_dsrc(grid, dout, out, shape, option)
+                    checked(f"d_src {option}", out, ref,
+                            2.0**-8 if dtype == torch.bfloat16 else 2e-5)
+                    timed[f"channels={channels},threads={threads},tile={tile}"] = us(
+                        lambda o=option: warp._launch_dsrc(grid, dout, out, shape, o))
+        planned = f"channels={plan.channels},threads={plan.threads},tile={plan.tile}"
+        return {"dsrc_plan": plan._asdict(), "dsrc_us": timed, "dsrc_planned": planned,
+                "dsrc_best": min(timed, key=timed.get)}
 
     def checked(name, got, ref, tol):
         torch.cuda.synchronize()
@@ -155,6 +190,8 @@ def main() -> int:
                             row["dgrid_us"][f"{option.variant},lanes={lane_count}"] = us(
                                 lambda o=option: warp._launch_dgrid(src, grid, dout, dgrid, o))
                         row["dgrid_best"] = min(row["dgrid_us"], key=row["dgrid_us"].get)
+                    if C > warp.SMALL_C:  # the raw source frame takes no d_src
+                        row.update(dsrc_options(grid, dout, dtype, h))
                 print(json.dumps(row), flush=True)
     log_text = (_build.BUILD_DIR / "build.log").read_text()
     print(json.dumps({"ptxas": {k: {"registers": r, "spill_store_bytes": st,
