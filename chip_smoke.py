@@ -29,7 +29,15 @@ Phases, each of which raises on failure:
      count the path implies: TransferEngine on configs/taichi.yaml's model
      at 64^2, 256 driving frames in chunks of 128, in bf16 and in f32; and
      Trainer on the same config at batch 32 with Adam, 3 warm-up steps and
-     10 timed ones, in bf16 (the config's setting) and in f32.
+     10 timed ones, in bf16 (the config's setting) and in f32;
+  5. the train loop (train_loop_phase): train() on configs/shapes.yaml over
+     the first 512 train videos of data/shapes, full width, batch 16, 2
+     epochs of 32 steps, with its kernel launches (6 warp, 5 d_src, 6
+     d_grid, 1 combine a step), log rows, train-vis gifs and epoch
+     checkpoints checked; a resume from the epoch-0 checkpoint, restored bit
+     for bit, that trains epoch 0 again; the loop's logged steps/s beside
+     Trainer.step alone, its wait on the loader, the reader that decoded,
+     peak memory and the first and last reconstruction loss.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
@@ -40,6 +48,10 @@ repository is not beside it. It imports nothing of JAX.
 from __future__ import annotations
 
 import json
+import math
+import os
+import re
+import statistics
 import subprocess
 import sys
 import time
@@ -1130,11 +1142,205 @@ def train_path(config, compute_dtype, device="cuda") -> dict:
     return result
 
 
-def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -> dict:
+# ---- the train loop ----------------------------------------------------------
+
+# configs/shapes.yaml cut to size: the first LOOP_VIDEOS train videos of
+# data/shapes (32 steps an epoch at batch 16), LOOP_EPOCHS epochs, a log line
+# and a train-vis gif every LOOP_LOG_FREQ steps, a checkpoint every epoch.
+LOOP_VIDEOS = 512
+LOOP_EPOCHS = 2
+LOOP_LOG_FREQ = 8
+LOOP_STEP_TIMED = 20  # Trainer.step alone, after TRAIN_WARMUP_STEPS
+LOG_ROW = re.compile(r"^(\d+)\) (.*); steps/s - (\S+)$")
+
+
+def _log_rows(log_dir) -> list:
+    """(iteration, {name: value}, steps/s) for every line of a log.txt."""
+    rows = []
+    for line in (Path(log_dir) / "log.txt").read_text().splitlines():
+        m = LOG_ROW.match(line)
+        if m is None:
+            raise AssertionError(f"train loop: malformed log line {line!r}")
+        values = dict(part.split(" - ") for part in m.group(2).split("; "))
+        rows.append((int(m.group(1)), {k: float(v) for k, v in values.items()},
+                     float(m.group(3))))
+    return rows
+
+
+def _same_state(a, b, where: str) -> int:
+    """Assert two (nested) state dicts are equal bit for bit; count tensors."""
+    import torch
+
+    if isinstance(a, torch.Tensor):
+        if not (isinstance(b, torch.Tensor) and a.dtype == b.dtype
+                and torch.equal(a.cpu(), b.cpu())):
+            raise AssertionError(f"resume: {where} differs from the checkpoint")
+        return 1
+    if isinstance(a, dict):
+        if set(a) != set(b):
+            raise AssertionError(f"resume: keys of {where} differ from the checkpoint")
+        return sum(_same_state(a[k], b[k], f"{where}.{k}") for k in a)
+    if isinstance(a, (list, tuple)):
+        if len(a) != len(b):
+            raise AssertionError(f"resume: {where} differs from the checkpoint")
+        return sum(_same_state(x, y, f"{where}[{i}]") for i, (x, y) in enumerate(zip(a, b)))
+    if a != b:
+        raise AssertionError(f"resume: {where} = {a!r}, checkpoint {b!r}")
+    return 0
+
+
+def train_loop_phase(device="cuda") -> dict:
+    """train() on configs/shapes.yaml over data/shapes at full width and
+    batch 16 (cut as LOOP_* say), with the kernels' launches counted over the
+    loop's steps; its log rows, gifs and checkpoints; a resume from the
+    epoch-0 checkpoint that restores the state bit for bit and trains epoch 0
+    again; and Trainer.step alone at the same config and batch."""
+    import copy
+    import tempfile
+
+    import torch
+
+    from monkeynet_tpu_torch.data.dataset import FramesDataset
+    from monkeynet_tpu_torch.data.io import decode_video
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import Trainer, metric_names
+    from monkeynet_tpu_torch.tasks.train_loop import train
+    from monkeynet_tpu_torch.utils.checkpoint import checkpoint_name, load_checkpoint
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    config = load_config(str(REPO / "configs" / "shapes.yaml"))
+    config["dataset_params"]["root_dir"] = str(REPO / "data" / "shapes")
+    tp = config["train_params"]
+    tp.update(num_epochs=LOOP_EPOCHS,
+              log_params={"log_freq_iter": LOOP_LOG_FREQ, "cpk_freq_epoch": 1})
+    dataset = FramesDataset(is_train=True, **config["dataset_params"])
+    dataset.images = dataset.images[:LOOP_VIDEOS]
+    _, reader = decode_video(str(Path(dataset.root_dir) / dataset.images[0]),
+                             dataset.image_shape)
+    steps_per_epoch = LOOP_VIDEOS // tp["batch_size"]
+    names = metric_names(tp)
+    rec_names = [n for n in names if n.endswith("_rec")]
+
+    with tempfile.TemporaryDirectory(prefix="monkeynet_loop_") as tmp:
+        log_dir, resume_dir = Path(tmp) / "run", Path(tmp) / "resume"
+        log_dir.mkdir()
+        resume_dir.mkdir()
+        counters = _counters()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for fn in counters.values():
+            fn.launches = 0
+        run = train(config, str(log_dir), dataset, seed=SEED, device=device)
+        launches = {name: fn.launches for name, fn in counters.items()}
+        peak = torch.cuda.max_memory_allocated()
+
+        steps = LOOP_EPOCHS * steps_per_epoch
+        if run.steps != steps or run.epochs != list(range(LOOP_EPOCHS)):
+            raise AssertionError(f"train loop: {run.steps} steps over epochs {run.epochs}")
+        want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()}
+        if launches != want:
+            raise AssertionError(f"train loop launch counts {launches} != expected {want}")
+        rows = _log_rows(log_dir)
+        if [it for it, _, _ in rows] != list(range(0, steps, LOOP_LOG_FREQ)):
+            raise AssertionError(f"train loop: log rows at {[it for it, _, _ in rows]}")
+        for it, values, _ in rows:
+            if list(values) != names or not all(math.isfinite(v) for v in values.values()):
+                raise AssertionError(f"train loop: bad log row {it}: {values}")
+        gifs = sorted(p.name for p in (log_dir / "train-vis").iterdir())
+        if gifs != [f"{it:08d}-rec.gif" for it, _, _ in rows]:
+            raise AssertionError(f"train loop: train-vis holds {gifs}")
+        cpks = [log_dir / checkpoint_name(e) for e in range(LOOP_EPOCHS)]
+        if not all(p.exists() for p in cpks):
+            raise AssertionError(f"train loop: missing checkpoints in {sorted(os.listdir(log_dir))}")
+
+        # The last checkpoint is also the exit save: the trainer's final state.
+        tensors = _same_state(load_checkpoint(str(cpks[-1])),
+                              {**run.trainer.state_dict(), "epoch": LOOP_EPOCHS - 1,
+                               "it": steps - 1}, "final state")
+        # A fresh trainer restores the epoch-0 checkpoint bit for bit.
+        saved = load_checkpoint(str(cpks[0]))
+        trainer = Trainer(build_train_models(config, device=device, seed=SEED + 1), tp,
+                          device=device, steps_per_epoch=steps_per_epoch)
+        trainer.load_state_dict(saved)
+        restored = _same_state({**trainer.state_dict(), "epoch": saved["epoch"],
+                                "it": saved["it"]}, saved, "restored state")
+        lrs = {name: trainer.schedulers[name].get_last_lr() for name in trainer.schedulers}
+        for name, lr in lrs.items():
+            if lr != saved[f"scheduler_{name}"]["_last_lr"]:
+                raise AssertionError(f"resume: {name} learning rate {lr}")
+        del trainer
+
+        resume_config = copy.deepcopy(config)
+        resume_config["train_params"]["num_epochs"] = 1
+        resumed = train(resume_config, str(resume_dir), dataset, checkpoint=str(cpks[0]),
+                        seed=SEED, device=device)
+        resumed_rows = _log_rows(resume_dir)
+        if resumed.epochs != [0] or resumed.steps != steps_per_epoch:
+            raise AssertionError(f"resume: trained epochs {resumed.epochs}, {resumed.steps} steps")
+        # The resumed run counts on from the checkpoint's `it`.
+        want_its = [i for i in range(saved["it"], saved["it"] + steps_per_epoch)
+                    if i % LOOP_LOG_FREQ == 0]
+        if [it for it, _, _ in resumed_rows] != want_its or not all(
+                math.isfinite(v) for _, values, _ in resumed_rows for v in values.values()):
+            raise AssertionError(f"resume: log rows {resumed_rows}")
+        wall_s, wait_s = run.wall_s, run.loader_wait_s
+        del run, resumed
+
+    # Trainer.step alone: same config and batch, float batches on the card.
+    trainer = Trainer(build_train_models(config, device=device, seed=SEED), tp,
+                      device=device, steps_per_epoch=steps_per_epoch)
+    gen = torch.Generator(device=device).manual_seed(SEED + 6)
+    batches = [{k: torch.rand(tp["batch_size"], 1, HW, HW, 3, device=device, generator=gen)
+                for k in ("source", "video")}
+               for _ in range(TRAIN_WARMUP_STEPS + LOOP_STEP_TIMED)]
+    for batch in batches[:TRAIN_WARMUP_STEPS]:
+        trainer.step(batch)
+    torch.cuda.synchronize()
+    times = []
+    for batch in batches[TRAIN_WARMUP_STEPS:]:
+        t0 = time.perf_counter()
+        trainer.step(batch)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    del trainer, batches
+
+    loop_sps = [sps for _, _, sps in rows]
+    result = {
+        "phase": "train_loop", "config": "configs/shapes.yaml", "videos": LOOP_VIDEOS,
+        "batch": tp["batch_size"], "epochs": LOOP_EPOCHS, "steps": steps,
+        "reader": reader, "launches": launches, "expected_launches": want,
+        "loop_steps_per_s_logged": loop_sps,
+        "loop_steps_per_s_logged_median_after_first": statistics.median(loop_sps[1:]),
+        "loop_wall_s": wall_s, "loop_steps_per_s_wall": steps / wall_s,
+        "loader_wait_s": wait_s,
+        "step_alone_s": times, "step_alone_steps_per_s_median": 1.0 / statistics.median(times),
+        "rec_first": sum(rows[0][1][n] for n in rec_names),
+        "rec_last": sum(rows[-1][1][n] for n in rec_names),
+        "rec_names": rec_names, "checkpoint_tensors_checked": tensors,
+        "restored_tensors_checked": restored, "restored_lr": lrs,
+        "resumed_epochs": [0], "resumed_from_it": saved["it"],
+        "resumed_logged_its": want_its,
+        "peak_mem_gb": peak / 1e9,
+    }
+    log(result)
+    log(f"train_loop: {result['loop_steps_per_s_logged_median_after_first']:.3f} steps/s "
+        f"(log.txt, median of the rows after the first) against "
+        f"{result['step_alone_steps_per_s_median']:.3f} for Trainer.step alone")
+    log(f"train_loop: waited {wait_s:.3f} s on the loader in {wall_s:.3f} s of loop")
+    log(f"train_loop: videos decoded by the {reader} reader")
+    log(f"train_loop: peak device memory {result['peak_mem_gb']:.3f} GB")
+    log(f"train_loop: reconstruction loss {result['rec_first']:.5f} at iteration 0, "
+        f"{result['rec_last']:.5f} at iteration {rows[-1][0]}")
+    return result
+
+
+def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
+                 loop_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
-    timed train steps for d_src and d_grid; both paths' counts are also given
-    under their own names. Times are per transfer chunk (forward kernels)
+    timed train steps for d_src and d_grid; every path's counts are also
+    given under its own name (`train_loop_launches`: the train loop's 64
+    steps). Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
     shape, the second warp of the source frame that the path no longer
@@ -1163,7 +1369,8 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict) -
         row = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                "launches": launches[name], **numbers(summary[key]),
                "transfer_launches": transfer_launches[name],
-               "train_launches": train_launches[name]}
+               "train_launches": train_launches[name],
+               "train_loop_launches": loop_launches[name]}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
@@ -1220,10 +1427,11 @@ def main() -> int:
     train_parity(config)
     runs = [main_path(config, torch.bfloat16), main_path(config, torch.float32)]
     train_runs = [train_path(config, "bfloat16"), train_path(config, None)]
+    loop = train_loop_phase()
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
-    print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"])),
-          flush=True)
+    print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
+                                  loop["launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,8 +26,9 @@ the JAX package runs every layer in the compute dtype and keeps f32 exactly
 where the modules say so (batch-norm statistics, keypoint math, the mask
 softmax, every sampling grid), and the port is held against that.
 
-Not here yet: the train loop (loader, logger, checkpoints, resume),
-rematerialisation, several steps per dispatch, and data parallelism.
+The loop around the step (loader, logger, checkpoints, resume) is
+tasks/train_loop.py. Not here yet: rematerialisation, several steps per
+dispatch, and data parallelism.
 """
 
 from __future__ import annotations
@@ -196,3 +197,38 @@ class Trainer:
             "video_deformed": generated["video_deformed"].detach(),
             "kp_joined": {k: v.detach() for k, v in kp_joined.items()},
         }
+
+    def state_dict(self) -> Dict:
+        """The entries of a reference checkpoint: each network's state_dict
+        under its name, its optimizer's as 'optimizer_<name>', and its
+        MultiStepLR's as 'scheduler_<name>'."""
+        out = {}
+        for name in MODEL_NAMES:
+            out[name] = self.models[name].state_dict()
+            out[f"optimizer_{name}"] = self.optimizers[name].state_dict()
+            if name in self.schedulers:
+                out[f"scheduler_{name}"] = self.schedulers[name].state_dict()
+        return out
+
+    def load_state_dict(self, state: Dict) -> None:
+        """Restore what `state_dict` gives, or the part of it that `state`
+        holds: a network absent from `state` keeps its weights. Where a
+        network's optimizer state comes without a scheduler's (the
+        reference's own checkpoints), the scheduler resumes at the
+        optimizer's step, as the JAX package's schedule does on resume
+        (`restore_adam_moments` in monkeynet_tpu/tasks/train.py)."""
+        for name in MODEL_NAMES:
+            if name not in state:
+                continue
+            self.models[name].load_state_dict(state[name])
+            opt_state = state.get(f"optimizer_{name}")
+            if opt_state is not None:
+                self.optimizers[name].load_state_dict(opt_state)
+            if name not in self.schedulers:
+                continue
+            if f"scheduler_{name}" in state:
+                self.schedulers[name].load_state_dict(state[f"scheduler_{name}"])
+            elif opt_state is not None and opt_state["state"]:
+                self.schedulers[name].last_epoch = max(
+                    int(s["step"]) for s in opt_state["state"].values()
+                )

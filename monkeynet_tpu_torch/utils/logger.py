@@ -1,0 +1,155 @@
+"""Training logger: running-mean loss lines, train-vis gifs, checkpoints.
+
+Counterpart of monkeynet_tpu/utils/logger.py, with the reference Logger's
+capabilities (logger.py:11-88): `log.txt` lines with a zero-filled iteration
+counter and the running means of the named losses every `log_freq_iter`,
+plus the steps/s since the previous line; train-vis reconstruction gifs;
+checkpoint files every `cpk_freq_epoch` epochs and on exit.
+
+The loss values of each step stay on the device until a log boundary, where
+they come to the host in one copy: the loop never waits on the card between
+boundaries.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from typing import Callable, List, Optional
+
+import numpy as np
+import torch
+
+from monkeynet_tpu_torch.data.io import write_gif
+from monkeynet_tpu_torch.utils.async_write import AsyncWriter
+from monkeynet_tpu_torch.utils.checkpoint import checkpoint_name, save_checkpoint
+from monkeynet_tpu_torch.utils.visualizer import Visualizer
+
+
+class Logger:
+    def __init__(
+        self,
+        log_dir: str,
+        log_file_name: str = "log.txt",
+        log_freq_iter: int = 100,
+        cpk_freq_epoch: int = 100,
+        zfill_num: int = 8,
+        visualizer_params: Optional[dict] = None,
+    ):
+        self.loss_list: List[torch.Tensor] = []
+        self.cpk_dir = log_dir
+        self.visualizations_dir = os.path.join(log_dir, "train-vis")
+        os.makedirs(self.visualizations_dir, exist_ok=True)
+        self.log_file = open(os.path.join(log_dir, log_file_name), "a")
+        self.log_freq = log_freq_iter
+        self.cpk_freq = cpk_freq_epoch
+        self.zfill_num = zfill_num
+        self.visualizer = Visualizer(**(visualizer_params or {}))
+        self.epoch = 0
+        self.it = 0
+        self.payload = None
+        self._t_last = time.time()
+        self._steps_since_log = 0
+        # Train-vis gifs rasterize and encode on a background thread, spawned
+        # at the first gif and joined at __exit__, so the gifs are on disk
+        # when the loop returns.
+        self._writer = None
+
+    # ---------------------------------------------------------------- scores
+    def log_scores(self, loss_names):
+        # One device-to-host copy for all the steps since the last line.
+        rows = torch.stack([torch.as_tensor(v) for v in self.loss_list]).cpu().numpy()
+        loss_mean = rows.mean(axis=0)
+        elapsed = time.time() - self._t_last
+        sps = self._steps_since_log / elapsed if elapsed > 0 else float("nan")
+        parts = "; ".join(
+            f"{name} - {value:.5f}" for name, value in zip(loss_names, loss_mean)
+        )
+        line = f"{str(self.it).zfill(self.zfill_num)}) {parts}; steps/s - {sps:.3f}"
+        print(line, file=self.log_file)
+        self.log_file.flush()
+        self.loss_list = []
+        self._t_last = time.time()
+        self._steps_since_log = 0
+
+    def visualize_rec(self, inp, out):
+        """inp / out: numpy, as Visualizer.visualize_reconstruction takes them."""
+        path = os.path.join(
+            self.visualizations_dir, f"{str(self.it).zfill(self.zfill_num)}-rec.gif"
+        )
+
+        def job(inp=inp, out=out, path=path):
+            write_gif(path, self.visualizer.visualize_reconstruction(inp, out))
+
+        if self._writer is None:
+            self._writer = AsyncWriter(name="monkeynet-logger-vis")
+        self._writer.submit(job)
+
+    # ----------------------------------------------------------- checkpoints
+    def stage_payload(self, payload):
+        """Stage the checkpoint payload (dict or zero-arg callable) without
+        writing; the next save_cpk / exit checkpoint uses it."""
+        self.payload = payload
+
+    def save_cpk(self, is_exit: bool = False):
+        if self.payload is None:
+            return
+        # The payload may be a zero-arg callable: the loop passes one, so the
+        # state is copied to the host only on epochs that checkpoint.
+        if is_exit:
+            try:
+                payload = self.payload() if callable(self.payload) else self.payload
+            except Exception as e:  # pragma: no cover - emergency-save path
+                # Losing the emergency checkpoint must not mask the error the
+                # loop is unwinding with. Scheduled epoch checkpoints get no
+                # such net: a failure to serialize there raises.
+                print(f"warning: checkpoint payload unavailable, skipping ({e})")
+                return
+        else:
+            payload = self.payload() if callable(self.payload) else self.payload
+        payload = dict(payload)
+        payload["epoch"] = self.epoch
+        payload["it"] = self.it
+        path = os.path.join(self.cpk_dir, checkpoint_name(self.epoch, self.zfill_num))
+        save_checkpoint(path, payload)
+
+    # -------------------------------------------------------------- protocol
+    def __enter__(self):
+        return self
+
+    def __exit__(self, exc_type, exc_val, exc_tb):
+        if self.payload is not None:
+            self.save_cpk(is_exit=True)
+        self.log_file.close()
+        if self._writer is None:
+            return
+        if exc_type is not None:
+            # Don't mask the loop's exception with a writer failure; still
+            # drain so queued gifs land on disk.
+            try:
+                self._writer.close()
+            except Exception as e:
+                print(f"warning: train-vis writer failed during unwind ({e})")
+        else:
+            self._writer.close()
+
+    def log_iter(self, it: int, names, values, vis: Optional[Callable] = None):
+        """Record step `it`'s loss `values` (a tensor, on the device is fine;
+        it is not read until the next log boundary). At a boundary, writes
+        the line and, when `vis` is given, the gif of `vis() -> (inp, out)`,
+        which is called there and only there."""
+        self.it = it
+        self._steps_since_log += 1
+        self.loss_list.append(values)
+        if it % self.log_freq == 0:
+            self.log_scores(names)
+            if vis is not None:
+                self.visualize_rec(*vis())
+
+    def log_epoch(self, epoch: int, payload):
+        """payload: checkpoint dict, or a zero-arg callable returning one
+        (called only when a checkpoint is written)."""
+        self.epoch = epoch
+        self.payload = payload
+        if epoch % self.cpk_freq == 0:
+            self.save_cpk()
