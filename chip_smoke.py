@@ -20,11 +20,16 @@ Phases, each of which raises on failure:
      alone and both; the three with scalar loads and with 64-bit offsets,
      and d_src's 'global' variant and its 'shared' one past 48 KB of shared
      memory at the 256^2 configs' skips (warp_edge_phase); the combine's
-     closed-form backward against autograd;
+     closed-form backward against autograd; the four kernels of the train
+     loop at the shapes its steps give them (configs/shapes.yaml, batch
+     16: the three warp kernels at C = 3 ... 128 over 64^2 ... 2^2, both
+     dtypes, random and identity grids; the combine and its backward at
+     K1 = 5; loop_kernel_phase);
   3. slice parity, kernels on the card against the plain versions on the
      CPU from one state_dict: a 4-frame transfer at taichi width, and one
-     train step at taichi width and batch 2 (metrics, the gradients of the
-     three networks, the updated batch-norm statistics), tolerances stated;
+     train step at batch 2 (metrics, the gradients of the three networks,
+     the updated batch-norm statistics) at taichi width and at shapes
+     width, tolerances stated;
   4. the main paths, with every kernel's launch count checked against the
      count the path implies: TransferEngine on configs/taichi.yaml's model
      at 64^2, 256 driving frames in chunks of 128, in bf16 and in f32; and
@@ -35,9 +40,10 @@ Phases, each of which raises on failure:
      epochs of 32 steps, with its kernel launches (6 warp, 5 d_src, 6
      d_grid, 1 combine a step), log rows, train-vis gifs and epoch
      checkpoints checked; a resume from the epoch-0 checkpoint, restored bit
-     for bit, that trains epoch 0 again; the loop's logged steps/s beside
-     Trainer.step alone, its wait on the loader, the reader that decoded,
-     peak memory and the first and last reconstruction loss.
+     for bit, that trains epoch 0 again; the loop's steps over its wall
+     time beside a window of Trainer.step alone (log.txt's steps/s per
+     window as a breakdown), its wait on the loader, the reader that
+     decoded, peak memory and the first and last reconstruction loss.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
@@ -51,7 +57,6 @@ import json
 import math
 import os
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -483,6 +488,64 @@ def grid_off_integers(B, h, gen, margin=0.05):
     return ((torch.floor(px) + frac) / (0.5 * (h - 1)) - 1.0).contiguous()
 
 
+def _warp_tol(ref, rounded=False):
+    """f32 results: sums of up to 4 * 1024 terms in another order (and, for
+    d_src, points binned in no fixed order); results rounded to bf16 (the
+    bf16 forward and d_src; d_grid is always f32): 2^-8. Both relative to
+    the reference's largest magnitude, at least 1."""
+    return (2.0**-8 if rounded else 2e-5) * max(1.0, ref.abs().max().item())
+
+
+def _warp_train_inputs(B, h, C, dtype, gen, device):
+    """A (B, h, h, C) source and dout, and two (B, h, h, 2) grids: one that
+    keeps off the integers and the identity, whose pixel coordinates lie on,
+    or within an ulp of, the integers (the kernels must pick the corners the
+    plain version picks, and d_grid must be its right difference)."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
+
+    src = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
+    dout = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
+    grids = {
+        "random": grid_off_integers(B, h, gen).to(device),
+        "identity": make_coordinate_grid((h, h))[None].expand(B, h, h, 2)
+        .contiguous().to(device),
+    }
+    return src, dout, grids
+
+
+def _check_warp_train(src, dout, grids, label: str) -> dict:
+    """The warp's forward, d_src and d_grid kernels against their plain
+    versions (in f32 on the same inputs) on each grid; max abs errors by
+    '<kernel>.<grid>'."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import warp
+
+    bf16 = src.dtype == torch.bfloat16
+    shape = tuple(src.shape)
+    errs = {}
+    for kind, grid in grids.items():
+        got = {
+            "warp_train": warp.warp(src, grid),
+            "warp_dsrc": warp.warp_dsrc(grid, dout, shape),
+            "warp_dgrid": warp.warp_dgrid(src, grid, dout),
+        }
+        ref = {
+            "warp_train": warp.grid_sample(src.float(), grid),
+            "warp_dsrc": warp.warp_dsrc_plain(grid, dout.float(), shape),
+            "warp_dgrid": warp.warp_dgrid_plain(src.float(), grid, dout.float()),
+        }
+        torch.cuda.synchronize()
+        for n, value in got.items():
+            err = max_err(value, ref[n])
+            check(f"{n} {label} {src.dtype} {list(shape)} {kind} grid", err,
+                  _warp_tol(ref[n], rounded=bf16 and n != "warp_dgrid"))
+            errs[f"{n}.{kind}"] = err
+    return errs
+
+
 def warp_train_phase(device) -> dict:
     """The three warp kernels at the seven warps of WARP_SHAPES at the
     taichi-64^2 train step (batch 32, one driving frame), f32 and bf16, each
@@ -497,7 +560,6 @@ def warp_train_phase(device) -> dict:
     import torch.nn.functional as F
 
     from monkeynet_tpu_torch.ops.cuda import warp
-    from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
 
     gen = torch.Generator().manual_seed(SEED + 10)
     B = TRAIN_BATCH
@@ -514,44 +576,13 @@ def warp_train_phase(device) -> dict:
         tot["warp_dsrc"]["extra_bytes"] = 0.0
         tot["warp_train"]["ms_seven_shapes"] = 0.0
 
-        def tol_of(ref, rounded=False):
-            # f32 results: sums of up to 4 * 1024 terms in another order
-            # (and, for d_src, points binned in no fixed order); results rounded to
-            # bf16 (the bf16 forward and d_src; d_grid is always f32): 2^-8
-            scale = max(1.0, ref.abs().max().item())
-            return (2.0**-8 if rounded else 2e-5) * scale
-
         for (C, h), in_path, dsrc_in_step, dgrid_in_step in zip(
                 WARP_SHAPES, WARP_IN_PATH, DSRC_IN_STEP, DGRID_IN_STEP):
-            src = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
-            dout = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
-            grids = {
-                "random": grid_off_integers(B, h, gen).to(device),
-                # pixel coordinates on, or within an ulp of, the integers: the
-                # kernels must pick the corners the plain version picks, and
-                # d_grid must be its right difference
-                "identity": make_coordinate_grid((h, h))[None].expand(B, h, h, 2)
-                .contiguous().to(device),
-            }
-            errs = {}
-            for kind, grid in grids.items():
-                got = {
-                    "warp_train": warp.warp(src, grid),
-                    "warp_dsrc": warp.warp_dsrc(grid, dout, tuple(src.shape)),
-                    "warp_dgrid": warp.warp_dgrid(src, grid, dout),
-                }
-                ref = {
-                    "warp_train": warp.grid_sample(src.float(), grid),
-                    "warp_dsrc": warp.warp_dsrc_plain(grid, dout.float(), tuple(src.shape)),
-                    "warp_dgrid": warp.warp_dgrid_plain(src.float(), grid, dout.float()),
-                }
-                torch.cuda.synchronize()
-                for n in names:
-                    err = max_err(got[n], ref[n])
-                    tol = tol_of(ref[n], rounded=bf16 and n != "warp_dgrid")
-                    check(f"{n} {dtype} C={C} {kind} grid", err, tol)
-                    errs[f"{n}.{kind}"] = err
-                    tot[n]["err"] = max(tot[n]["err"], err)
+            src, dout, grids = _warp_train_inputs(B, h, C, dtype, gen, device)
+            errs = _check_warp_train(src, dout, grids, "taichi")
+            for key, err in errs.items():
+                n = key.split(".")[0]
+                tot[n]["err"] = max(tot[n]["err"], err)
             grid = grids["random"]
             shape = tuple(src.shape)
             n_pts = B * h * h
@@ -619,9 +650,9 @@ def warp_train_phase(device) -> dict:
                     "d_src": max_err(lib_src.permute(0, 2, 3, 1), ref_src),
                     "d_grid": max_err(lib_grid, ref_grid),
                 }
-                check(f"F.grid_sample d_src C={C}", row["library_err"]["d_src"], tol_of(ref_src))
+                check(f"F.grid_sample d_src C={C}", row["library_err"]["d_src"], _warp_tol(ref_src))
                 check(f"F.grid_sample d_grid C={C}", row["library_err"]["d_grid"],
-                      10 * tol_of(ref_grid))
+                      10 * _warp_tol(ref_grid))
                 row["library_fwd_ms"] = time_ms(lambda: library(nchw, grid))
                 # the backward alone cannot be replayed from a graph recorded
                 # outside the capture: time forward + backward, less the forward
@@ -789,23 +820,23 @@ def warp_edge_phase(device) -> dict:
     return result
 
 
-def combine_backward_phase(device) -> dict:
-    """At the train step's shape, on the card: the combine kernel against
-    combine_plain, and its closed-form backward (plain PyTorch in both
-    packages) against autograd of combine_plain."""
+def combine_backward_phase(device, batch=TRAIN_BATCH, K1=11, label="taichi") -> dict:
+    """At a train step's shape (batch, one frame, HW^2, K1 = num_kp + 1),
+    on the card: the combine kernel against combine_plain, and its
+    closed-form backward (plain PyTorch in both packages) against autograd
+    of combine_plain."""
     import torch
 
     from monkeynet_tpu_torch.ops.cuda import combine
 
     gen = torch.Generator().manual_seed(SEED + 11)
-    K1 = 11
-    logits = (2.0 * torch.randn(TRAIN_BATCH, 1, HW, HW, K1, generator=gen)).to(device)
-    diff = (0.1 * torch.randn(TRAIN_BATCH, 1, K1, 2, generator=gen)).to(device)
-    corr = (0.01 * torch.randn(TRAIN_BATCH, 1, HW, HW, 2, generator=gen)).to(device)
-    g = torch.randn(TRAIN_BATCH, 1, HW, HW, 2, generator=gen).to(device)
+    logits = (2.0 * torch.randn(batch, 1, HW, HW, K1, generator=gen)).to(device)
+    diff = (0.1 * torch.randn(batch, 1, K1, 2, generator=gen)).to(device)
+    corr = (0.01 * torch.randn(batch, 1, HW, HW, 2, generator=gen)).to(device)
+    g = torch.randn(batch, 1, HW, HW, 2, generator=gen).to(device)
     forward_err = max_err(combine.combine(logits, diff, corr),
                           combine.combine_plain(logits, diff, corr))
-    check("combine forward, train shape", forward_err, 1e-5)
+    check(f"combine forward, {label} train shape", forward_err, 1e-5)
 
     def grads(fn):
         # leaves made here, so a captured replay owns its whole graph
@@ -820,15 +851,63 @@ def combine_backward_phase(device) -> dict:
     errs = {"forward": forward_err}
     for (name, tol), a, b in zip(tols.items(), got, want):
         errs[name] = max_err(a, b)
-        check(f"combine backward {name}", errs[name], tol)
+        check(f"combine backward {label} {name}", errs[name], tol)
     result = {
-        "phase": "combine_backward", "shape": list(logits.shape), "max_abs_err": errs,
+        "phase": "combine_backward", "config": label, "shape": list(logits.shape),
+        "max_abs_err": errs,
         "tol": dict(tols, forward=1e-5),
         "closed_form_ms": time_ms(lambda: combine.combine_backward(logits, diff, g)),
         "autograd_fwd_bwd_ms": time_ms(lambda: grads(combine.combine_plain)),
     }
     log(result)
     return result
+
+
+def shapes_train_shapes(config) -> tuple:
+    """(batch, [(C, h) of each warp], K1) of a config's train step at 64^2:
+    the generator warps each encoder skip once (the first is the source
+    frame), and the combine mixes num_kp + 1 masks."""
+    gp = config["model_params"]["generator_params"]
+    widths = [config["model_params"]["common_params"]["num_channels"]] + [
+        min(gp["max_features"], gp["block_expansion"] * 2 ** (i + 1))
+        for i in range(gp["num_blocks"])]
+    warps = [(C, HW >> i) for i, C in enumerate(widths)]
+    K1 = config["model_params"]["common_params"]["num_kp"] + 1
+    return config["train_params"]["batch_size"], warps, K1
+
+
+def loop_kernel_phase(device) -> dict:
+    """The four kernels of the train loop (train_loop_phase) at the shapes
+    its steps give them, configs/shapes.yaml at batch 16: the warp's
+    forward, d_src and d_grid at each of the six warps (C = 3, 32, 64, 128,
+    128, 128 over 64^2 ... 2^2) on a random and an identity grid, in f32
+    (the loop's dtype) and bf16, with their plans and L2-warm times; the
+    combine and its backward at K1 = 5."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import warp
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    B, warps, K1 = shapes_train_shapes(load_config(str(REPO / "configs" / "shapes.yaml")))
+    gen = torch.Generator().manual_seed(SEED + 13)
+    rows = []
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, h in warps:
+            src, dout, grids = _warp_train_inputs(B, h, C, dtype, gen, device)
+            grid, shape = grids["random"], tuple(src.shape)
+            row = {"kernel": "warp fwd/d_src/d_grid", "config": "shapes", "dtype": str(dtype),
+                   "shape": list(shape),
+                   "max_abs_err": _check_warp_train(src, dout, grids, "shapes"),
+                   "fwd_plan": warp.warp_plan(B, h * h, C, dtype, True, h * h)._asdict(),
+                   "dsrc_plan": warp.dsrc_plan(B, h * h, C, dtype, True, (h, h))._asdict(),
+                   "dgrid_plan": warp.dgrid_plan(B, h * h, C, dtype, True, h * h)._asdict(),
+                   "fwd_ms": time_ms(lambda: warp.warp(src, grid)),
+                   "dsrc_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape)),
+                   "dgrid_ms": time_ms(lambda: warp.warp_dgrid(src, grid, dout))}
+            log(row)
+            rows.append(row)
+    combine_row = combine_backward_phase(device, batch=B, K1=K1, label="shapes")
+    return {"phase": "loop_kernels", "warp_rows": rows, "combine": combine_row}
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -1011,9 +1090,10 @@ def _buffers(trainer) -> dict:
             for key, b in model.named_buffers() if not key.endswith("num_batches_tracked")}
 
 
-def train_parity(config, device="cuda") -> dict:
-    """One SGD step at taichi width, batch 2, f32: kernels on the card against
-    the plain versions on the CPU, from one state_dict, held to PARITY_TOL.
+def train_parity(config, label="taichi", device="cuda") -> dict:
+    """One SGD step at a config's width (taichi's; shapes', the loop's),
+    batch 2, f32: kernels on the card against the plain versions on the
+    CPU, from one state_dict, held to PARITY_TOL.
 
     At this width and with random weights the step amplifies rounding: thirty
     1024-wide layers with batch statistics and a temperature-0.1 softmax in
@@ -1052,14 +1132,15 @@ def train_parity(config, device="cuda") -> dict:
         "metrics_max_rel": ((card_metrics - metrics).abs()
                             / metrics.abs().clamp_min(1e-6)).max().item(),
     }
-    result = {"phase": "train_parity", "batch": 2, "metric_names": metric_names(train_params),
+    result = {"phase": "train_parity", "config": label, "batch": 2,
+              "metric_names": metric_names(train_params),
               "metrics_cpu": metrics.tolist(), "metrics_card": card_metrics.tolist(),
               "card_vs_cpu": gaps, "tol": PARITY_TOL}
     log(result)
     for group, err in gaps["grad_rel_l2"].items():
-        check(f"train parity grad {group}", err, PARITY_TOL["grad_rel_l2"])
+        check(f"train parity {label} grad {group}", err, PARITY_TOL["grad_rel_l2"])
     for key in ("bn_stats_max_abs", "metrics_max_rel"):
-        check(f"train parity {key}", gaps[key], PARITY_TOL[key])
+        check(f"train parity {label} {key}", gaps[key], PARITY_TOL[key])
     return result
 
 
@@ -1150,7 +1231,7 @@ def train_path(config, compute_dtype, device="cuda") -> dict:
 LOOP_VIDEOS = 512
 LOOP_EPOCHS = 2
 LOOP_LOG_FREQ = 8
-LOOP_STEP_TIMED = 20  # Trainer.step alone, after TRAIN_WARMUP_STEPS
+LOOP_STEP_TIMED = 32  # Trainer.step alone, one window after TRAIN_WARMUP_STEPS
 LOG_ROW = re.compile(r"^(\d+)\) (.*); steps/s - (\S+)$")
 
 
@@ -1296,12 +1377,12 @@ def train_loop_phase(device="cuda") -> dict:
     for batch in batches[:TRAIN_WARMUP_STEPS]:
         trainer.step(batch)
     torch.cuda.synchronize()
-    times = []
+    # one window, as the loop is timed: the steps back to back, one sync
+    t0 = time.perf_counter()
     for batch in batches[TRAIN_WARMUP_STEPS:]:
-        t0 = time.perf_counter()
         trainer.step(batch)
-        torch.cuda.synchronize()
-        times.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    alone_s = time.perf_counter() - t0
     del trainer, batches
 
     loop_sps = [sps for _, _, sps in rows]
@@ -1309,11 +1390,14 @@ def train_loop_phase(device="cuda") -> dict:
         "phase": "train_loop", "config": "configs/shapes.yaml", "videos": LOOP_VIDEOS,
         "batch": tp["batch_size"], "epochs": LOOP_EPOCHS, "steps": steps,
         "reader": reader, "launches": launches, "expected_launches": want,
+        # the loop's rate: its steps over its wall time, first batch to the
+        # last step's end (the cold first step, gifs and checkpoint writes
+        # included); log.txt's windows of LOOP_LOG_FREQ steps only break it down
+        "loop_wall_s": wall_s, "loop_steps_per_s": steps / wall_s,
         "loop_steps_per_s_logged": loop_sps,
-        "loop_steps_per_s_logged_median_after_first": statistics.median(loop_sps[1:]),
-        "loop_wall_s": wall_s, "loop_steps_per_s_wall": steps / wall_s,
         "loader_wait_s": wait_s,
-        "step_alone_s": times, "step_alone_steps_per_s_median": 1.0 / statistics.median(times),
+        "step_alone_steps": LOOP_STEP_TIMED, "step_alone_s": alone_s,
+        "step_alone_steps_per_s": LOOP_STEP_TIMED / alone_s,
         "rec_first": sum(rows[0][1][n] for n in rec_names),
         "rec_last": sum(rows[-1][1][n] for n in rec_names),
         "rec_names": rec_names, "checkpoint_tensors_checked": tensors,
@@ -1323,9 +1407,10 @@ def train_loop_phase(device="cuda") -> dict:
         "peak_mem_gb": peak / 1e9,
     }
     log(result)
-    log(f"train_loop: {result['loop_steps_per_s_logged_median_after_first']:.3f} steps/s "
-        f"(log.txt, median of the rows after the first) against "
-        f"{result['step_alone_steps_per_s_median']:.3f} for Trainer.step alone")
+    log(f"train_loop: {result['loop_steps_per_s']:.3f} steps/s ({steps} steps over the "
+        f"loop's wall time) against {result['step_alone_steps_per_s']:.3f} for Trainer.step "
+        f"alone ({LOOP_STEP_TIMED} warm steps back to back); log.txt windows: "
+        + ", ".join(f"{sps:.3f}" for sps in loop_sps))
     log(f"train_loop: waited {wait_s:.3f} s on the loader in {wall_s:.3f} s of loop")
     log(f"train_loop: videos decoded by the {reader} reader")
     log(f"train_loop: peak device memory {result['peak_mem_gb']:.3f} GB")
@@ -1423,8 +1508,10 @@ def main() -> int:
     summary.update(warp_train_phase("cuda"))
     warp_edge_phase("cuda")
     combine_backward_phase("cuda")
+    loop_kernel_phase("cuda")
     slice_parity(config)
     train_parity(config)
+    train_parity(load_config(str(REPO / "configs" / "shapes.yaml")), "shapes")
     runs = [main_path(config, torch.bfloat16), main_path(config, torch.float32)]
     train_runs = [train_path(config, "bfloat16"), train_path(config, None)]
     loop = train_loop_phase()

@@ -1,10 +1,12 @@
 """Threaded, bounded batch loader and the feeder that stages batches on the card.
 
 Counterpart of monkeynet_tpu/data/loader.py: `collate`, `quantize_feed` and
-`DataLoader` are copies, so the port sees the JAX package's batches exactly
-(the shuffle keyed by (seed, epoch), the per-item RNG by (seed, epoch,
-batch, position), one persistent worker pool across epochs, and at most
-`prefetch + num_workers - 1` decoded batches in flight: a semaphore gates
+`DataLoader` are copies (the loader with only the train loop's walk: one
+process, shuffled, the last partial batch dropped), so the port sees the
+JAX package's batches exactly (the shuffle keyed by (seed, epoch), the
+per-item RNG by (seed, epoch, batch, position), one persistent worker pool
+across epochs, and at most `prefetch + num_workers - 1` decoded batches in
+flight: a semaphore gates
 workers before they claim a task, so the in-flight set is always the
 lowest-indexed pending batches). `DevicePrefetch` takes the place of the JAX
 package's `device_prefetch`: a feeder thread copies batch N+1 to the card
@@ -20,6 +22,7 @@ from typing import Iterator
 
 import numpy as np
 import torch
+
 
 def collate(items):
     """Stack a list of dict samples into batched numpy arrays."""
@@ -48,67 +51,45 @@ def quantize_feed(batch, keys=("source", "video")):
 
 
 class DataLoader:
+    """Batches of `dataset` for training: shuffled every epoch, the last
+    partial batch dropped (the JAX package's `shuffle=True, drop_last=True`)."""
+
     def __init__(
         self,
         dataset,
         batch_size: int,
-        shuffle: bool = True,
-        drop_last: bool = True,
         num_workers: int = 4,
         seed: int = 0,
         prefetch: int = 2,
-        num_shards: int = 1,
-        shard_index: int = 0,
         postprocess=None,
     ):
-        """batch_size is the LOCAL batch; with num_shards > 1 (multi-host
-        data parallelism) every shard walks the same seed-keyed global
-        permutation and takes its contiguous slab of each global batch of
-        num_shards*batch_size, so the union of the shards' batches is exactly
-        the single-process global batch (same seed, same epoch)."""
         self.dataset = dataset
         self.batch_size = batch_size
-        self.shuffle = shuffle
-        self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch = max(1, prefetch)
-        self.num_shards = num_shards
-        self.shard_index = shard_index
         # Applied to each collated batch INSIDE the worker thread (e.g.
         # quantize_feed): batch-level numpy work belongs with decode/augment,
         # not on the consumer thread that keeps the device queue full.
         self.postprocess = postprocess
-        if num_shards > 1 and not drop_last:
-            raise ValueError("sharded loading requires drop_last=True")
         self.epoch = 0
 
     def __len__(self):
-        n = len(self.dataset)
-        global_bs = self.batch_size * self.num_shards
-        return n // global_bs if self.drop_last else -(-n // global_bs)
+        return len(self.dataset) // self.batch_size
 
-    def _batch_indices(self, epoch=None):
-        n = len(self.dataset)
-        order = np.arange(n)
-        if self.shuffle:
-            ep = self.epoch if epoch is None else epoch
-            np.random.default_rng(self.seed + ep).shuffle(order)
-        global_bs = self.batch_size * self.num_shards
-        stop = (n // global_bs) * global_bs if self.drop_last else n
-        for i in range(0, stop, global_bs):
-            lo = i + self.shard_index * self.batch_size
-            yield order[lo : lo + self.batch_size]
+    def _batch_indices(self, epoch: int):
+        order = np.arange(len(self.dataset))
+        np.random.default_rng(self.seed + epoch).shuffle(order)
+        for i in range(0, len(self) * self.batch_size, self.batch_size):
+            yield order[i : i + self.batch_size]
 
     def _load_batch(self, epoch: int, bi: int, idxs) -> dict:
         items = []
         for pos, j in enumerate(idxs):
-            # Per-item RNG: keyed by (seed, epoch, batch, GLOBAL position),
-            # so the augmentation stream of one item never depends on its
-            # batchmates, on which worker thread decoded it, or on how the
-            # global batch is sharded across processes.
-            gpos = self.shard_index * self.batch_size + pos
-            rng = np.random.default_rng((self.seed, epoch, bi, gpos))
+            # Per-item RNG: keyed by (seed, epoch, batch, position), so the
+            # augmentation stream of one item never depends on its
+            # batchmates or on which worker thread decoded it.
+            rng = np.random.default_rng((self.seed, epoch, bi, pos))
             try:
                 items.append(self.dataset.__getitem__(int(j), rng=rng))
             except TypeError:
@@ -117,10 +98,6 @@ class DataLoader:
         if self.postprocess is not None:
             batch = self.postprocess(batch)
         return batch
-
-    def __iter__(self) -> Iterator[dict]:
-        """One epoch at self.epoch (then bumps it) — a 1-epoch stream()."""
-        return (batch for _, batch in self.stream(1))
 
     def stream(self, num_epochs: int) -> Iterator[tuple]:
         """Yield (epoch, batch) across `num_epochs` epochs starting at

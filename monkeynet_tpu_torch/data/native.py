@@ -90,10 +90,6 @@ def get_lib() -> Optional[ctypes.CDLL]:
         return _lib
 
 
-def available() -> bool:
-    return get_lib() is not None
-
-
 def read_stacked(path: str, frame_h: int, frame_w: int) -> Optional[np.ndarray]:
     """Decode a stacked-frame PNG/JPG to (T, frame_h, frame_w, 3) float32,
     or None when the native decoder is unavailable or declines the file."""

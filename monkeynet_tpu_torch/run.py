@@ -8,7 +8,7 @@ Counterpart of the repository's run.py (the JAX package's CLI) for
 `--mode train`: a timestamped log directory (or the checkpoint's own when
 resuming) with the config copied in, then `train` on the config's dataset.
 Reconstruction, transfer and prediction are not ported yet (ROADMAP item 6)
-and exit with an error. `--device cpu` runs the plain PyTorch path.
+and exit with an error. It runs on the card and refuses to start without one.
 """
 
 from __future__ import annotations
@@ -27,7 +27,6 @@ def main(argv=None) -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler trace of train steps 10-20 into DIR")
-    parser.add_argument("--device", default="cuda", help="torch device (default: cuda)")
     opt = parser.parse_args(argv)
 
     if opt.mode != "train":
@@ -40,7 +39,7 @@ def main(argv=None) -> int:
     from monkeynet_tpu_torch.utils.config import load_config, prepare_log_dir
     from monkeynet_tpu_torch.utils.device import require_device
 
-    device = require_device(opt.device)
+    device = require_device("cuda")
     config = load_config(opt.config)
     log_dir = prepare_log_dir(opt.config, opt.log_dir, opt.checkpoint)
     dataset = FramesDataset(is_train=True, **config["dataset_params"])

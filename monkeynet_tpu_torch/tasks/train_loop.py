@@ -69,8 +69,6 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
     loader = DataLoader(
         dataset,
         batch_size=train_params["batch_size"],
-        shuffle=True,
-        drop_last=True,
         num_workers=int(train_params.get("num_workers", 2)),
         seed=seed,
         postprocess=quantize_feed if feed_uint8 else None,

@@ -125,26 +125,3 @@ class Visualizer:
             (source, kp_appearance), (gt, kp_video), pred, deformed, gt
         )
         return (255 * np.clip(image, 0, 1)).astype(np.uint8)
-
-    def visualize_transfer(self, driving_video, source_image, out):
-        pred = np.asarray(out["video_prediction"])
-        deformed = np.asarray(out["video_deformed"])
-        driving = np.asarray(driving_video)
-        d = pred.shape[1]
-        source = self._rep(np.asarray(source_image)[:, :1], d)
-        driving_first = self._rep(driving[:, :1], d)
-
-        kp_video = np.asarray(out["kp_driving"]["mean"])
-        kp_appearance = np.repeat(np.asarray(out["kp_source"]["mean"]), d, axis=1)
-        kp_norm = np.asarray(out["kp_norm"]["mean"])
-        kp_video_first = np.repeat(kp_video[:, :1], d, axis=1)
-
-        image = self.create_image_grid(
-            (source, kp_appearance),
-            (driving_first, kp_video_first),
-            (driving, kp_video),
-            (pred, kp_norm),
-            pred,
-            deformed,
-        )
-        return (255 * np.clip(image, 0, 1)).astype(np.uint8)

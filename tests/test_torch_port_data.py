@@ -102,8 +102,10 @@ def test_decode_video_falls_back_to_pillow(root, tmp_path, monkeypatch):
 def _batches(loader_cls, dataset_cls, root, augmentation, postprocess, cache, num_workers):
     dataset = dataset_cls(root_dir=root, image_shape=(HW, HW, 3), is_train=True,
                           augmentation_params=augmentation, cache_videos=cache)
-    loader = loader_cls(dataset, batch_size=3, shuffle=True, drop_last=True,
-                        num_workers=num_workers, seed=5, postprocess=postprocess)
+    # the JAX loader's defaults, shuffle=True and drop_last=True, are the
+    # port's only behaviour
+    loader = loader_cls(dataset, batch_size=3, num_workers=num_workers, seed=5,
+                        postprocess=postprocess)
     loader.epoch = 1
     return list(loader.stream(2))
 

@@ -292,20 +292,25 @@ def test_train_refuses_missing_cuda_and_several_devices(runs, monkeypatch):
 
 
 def test_cli_trains_on_the_cpu_and_refuses_the_rest(runs, tmp_path, monkeypatch, capsys):
-    """`python -m monkeynet_tpu_torch.run`: train with --device cpu into a
-    timestamped directory, with a profiler trace of steps 10-20; refuse the
-    missing card and the modes not ported yet."""
+    """`python -m monkeynet_tpu_torch.run`: train (on the CPU, the card's
+    check answered with the CPU device) into a timestamped directory, with a
+    profiler trace of steps 10-20; refuse the missing card and the modes not
+    ported yet."""
     import yaml
 
     from monkeynet_tpu_torch import run
+    from monkeynet_tpu_torch.utils import device as device_mod
 
     config = copy.deepcopy(runs["config"])
     config["train_params"]["num_epochs"] = 6  # 12 steps: past the profiled 10-20
     config["train_params"]["log_params"] = {"log_freq_iter": 100, "cpk_freq_epoch": 100}
     path = tmp_path / "tiny.yaml"
     path.write_text(yaml.safe_dump(config))
+    require_device = device_mod.require_device
+    monkeypatch.setattr(device_mod, "require_device", lambda device: torch.device("cpu"))
     assert run.main(["--config", str(path), "--log_dir", str(tmp_path / "log"),
-                     "--device", "cpu", "--profile", str(tmp_path / "trace")]) == 0
+                     "--profile", str(tmp_path / "trace")]) == 0
+    monkeypatch.setattr(device_mod, "require_device", require_device)
     assert "12 steps in" in capsys.readouterr().out
     (log_dir,) = (tmp_path / "log").iterdir()
     assert log_dir.name.startswith("tiny ")
