@@ -43,7 +43,20 @@ Phases, each of which raises on failure:
      for bit, that trains epoch 0 again; the loop's steps over its wall
      time beside a window of Trainer.step alone (log.txt's steps/s per
      window as a breakdown), its wait on the loader, the reader that
-     decoded, peak memory and the first and last reconstruction loss.
+     decoded, peak memory and the first and last reconstruction loss;
+  6. the eval paths (eval_phase) on phase 5's last checkpoint, each step with
+     its launches counted and checked against its route's and its wall time
+     printed beside the card: reconstruction() over the first 4 test videos
+     of data/shapes (files, finite L1 / AKD / AED, L1 below the loop's
+     initial weights'); transfer() over 4 pairs on both routes (the config's
+     move_location through TransferEngine; the hull and covariance recipe
+     through KPExtractor, normalize_kp and Animator); one reconstruction video
+     and one hull pair on the card against the CPU, keypoints and generator
+     each from the same inputs; prediction() with the
+     GRU at 1024 features, 20 epochs over 16 train videos, 4 test videos
+     rolled out (the loss falls, the gifs are written); the demo on
+     configs/moving-gif.yaml at 128^2, full width, random weights, over
+     data/demo.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
@@ -59,6 +72,7 @@ import os
 import re
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -929,6 +943,33 @@ def _perturb_for_parity(generator, seed: int) -> None:
                 buf.copy_(0.5 + torch.rand(buf.shape, generator=gen))
 
 
+PARITY_OUT_TOL = {
+    # ~30 conv layers at widths up to 2048 summed in other orders by
+    # cuDNN and the CPU: f32 noise grows to ~1e-5 on [0, 1] outputs
+    "video_prediction": 1e-3,
+    "video_deformed": 1e-3,
+    # keypoints come out of a temperature-0.1 softmax over 4096 pixels
+    "kp_driving.mean": 1e-4,
+    "kp_source.mean": 1e-4,
+}
+
+
+def parity_errors(gpu: dict, cpu: dict, label: str) -> dict:
+    """Max abs errors of the card's outputs against the CPU's (tensors or
+    numpy), each checked against PARITY_OUT_TOL."""
+    import torch
+
+    def get(out, name):
+        group, _, key = name.partition(".")
+        value = out[group][key] if key else out[group]
+        return torch.as_tensor(value).cpu()
+
+    errs = {name: max_err(get(gpu, name), get(cpu, name)) for name in PARITY_OUT_TOL}
+    for name, err in errs.items():
+        check(f"{label} {name}", err, PARITY_OUT_TOL[name])
+    return errs
+
+
 def slice_parity(config, device="cuda") -> dict:
     """4-frame transfer at taichi width: kernels on the card against the
     plain versions on the CPU, from one state_dict, in f32."""
@@ -948,28 +989,12 @@ def slice_parity(config, device="cuda") -> dict:
     gpu = TransferEngine(copy.deepcopy(generator), copy.deepcopy(kp_detector),
                          device=device)(source, driving)
     torch.cuda.synchronize()
-    tolerances = {
-        # ~30 conv layers at widths up to 2048 summed in other orders by
-        # cuDNN and the CPU: f32 noise grows to ~1e-5 on [0, 1] outputs
-        "video_prediction": 1e-3,
-        "video_deformed": 1e-3,
-        # keypoints come out of a temperature-0.1 softmax over 4096 pixels
-        "kp_driving.mean": 1e-4,
-        "kp_source.mean": 1e-4,
-    }
-    errs = {
-        "video_prediction": max_err(gpu["video_prediction"].cpu(), cpu["video_prediction"]),
-        "video_deformed": max_err(gpu["video_deformed"].cpu(), cpu["video_deformed"]),
-        "kp_driving.mean": max_err(gpu["kp_driving"]["mean"].cpu(), cpu["kp_driving"]["mean"]),
-        "kp_source.mean": max_err(gpu["kp_source"]["mean"].cpu(), cpu["kp_source"]["mean"]),
-    }
     off_identity = max_err(cpu["video_deformed"], source.expand_as(cpu["video_deformed"]))
     if off_identity < 0.05:
         raise AssertionError(f"parity flow is the identity (max change {off_identity})")
-    for name, err in errs.items():
-        check(f"slice parity {name}", err, tolerances[name])
+    errs = parity_errors(gpu, cpu, "slice parity")
     result = {"phase": "slice_parity", "frames": 4, "max_abs_err": errs,
-              "tol": tolerances, "deformed_vs_source": off_identity}
+              "tol": PARITY_OUT_TOL, "deformed_vs_source": off_identity}
     log(result)
     return result
 
@@ -984,14 +1009,34 @@ def _counters():
             "heatmap": heatmap.heatmap}
 
 
-def expected_launches(n_frames: int, chunk: int) -> dict:
-    """Per chunk: six warps (the six encoder skips; the first is the source
-    frame, whose warp is also video_deformed), one combine, four heatmaps
-    (driving and source in two embeddings), one soft-argmax; plus one
-    soft-argmax for the source frame on the first chunk."""
+def generator_launches(config) -> dict:
+    """Forward kernels of one generator call (one chunk of frames): a warp
+    per encoder skip (num_blocks + 1, the first the source frame itself), one
+    combine (the dense motion's masks), and per movement embedding with
+    heatmaps one heatmap of the driving keypoints, and a second of the
+    source's where it is a 'difference' heatmap."""
+    gp = config["model_params"]["generator_params"]
+    embeddings = (gp["dense_motion_params"]["mask_embedding_params"],
+                  gp.get("kp_embedding_params"))
+    heatmaps = sum(1 + (e.get("heatmap_type") == "difference")
+                   for e in embeddings if e and e.get("use_heatmap", True))
+    return {"warp": gp["num_blocks"] + 1, "warp_dsrc": 0, "warp_dgrid": 0, "combine": 1,
+            "heatmap": heatmaps, "softargmax": 0}
+
+
+def _route_launches(config, calls: int, softargmax: int) -> dict:
+    """`calls` generator calls of one chunk each, and `softargmax` keypoint
+    detector calls of one chunk each."""
+    return {k: v * calls for k, v in generator_launches(config).items()} | {
+        "softargmax": softargmax}
+
+
+def expected_launches(config, n_frames: int, chunk: int) -> dict:
+    """TransferEngine: per chunk one generator call and one soft-argmax;
+    plus one soft-argmax for the source frame on the first chunk (taichi:
+    six warps, one combine and four heatmaps a chunk)."""
     chunks = -(-n_frames // chunk)
-    return {"warp": 6 * chunks, "warp_dsrc": 0, "warp_dgrid": 0, "combine": chunks,
-            "heatmap": 4 * chunks, "softargmax": chunks + 1}
+    return _route_launches(config, chunks, chunks + 1)
 
 
 def main_path(config, dtype, device="cuda") -> dict:
@@ -1019,7 +1064,7 @@ def main_path(config, dtype, device="cuda") -> dict:
     launches = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    want = expected_launches(N_FRAMES, CHUNK)
+    want = expected_launches(config, N_FRAMES, CHUNK)
     if launches != want:
         raise AssertionError(f"launch counts {launches} != expected {want}")
     pred = out["video_prediction"]
@@ -1270,14 +1315,15 @@ def _same_state(a, b, where: str) -> int:
     return 0
 
 
-def train_loop_phase(device="cuda") -> dict:
+def train_loop_phase(work_dir: Path, device="cuda") -> dict:
     """train() on configs/shapes.yaml over data/shapes at full width and
     batch 16 (cut as LOOP_* say), with the kernels' launches counted over the
     loop's steps; its log rows, gifs and checkpoints; a resume from the
     epoch-0 checkpoint that restores the state bit for bit and trains epoch 0
-    again; and Trainer.step alone at the same config and batch."""
+    again; and Trainer.step alone at the same config and batch. Writes under
+    `work_dir`; the result's `checkpoint` is the last epoch's, for
+    eval_phase."""
     import copy
-    import tempfile
 
     import torch
 
@@ -1302,70 +1348,69 @@ def train_loop_phase(device="cuda") -> dict:
     names = metric_names(tp)
     rec_names = [n for n in names if n.endswith("_rec")]
 
-    with tempfile.TemporaryDirectory(prefix="monkeynet_loop_") as tmp:
-        log_dir, resume_dir = Path(tmp) / "run", Path(tmp) / "resume"
-        log_dir.mkdir()
-        resume_dir.mkdir()
-        counters = _counters()
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats()
-        for fn in counters.values():
-            fn.launches = 0
-        run = train(config, str(log_dir), dataset, seed=SEED, device=device)
-        launches = {name: fn.launches for name, fn in counters.items()}
-        peak = torch.cuda.max_memory_allocated()
+    log_dir, resume_dir = work_dir / "run", work_dir / "resume"
+    log_dir.mkdir()
+    resume_dir.mkdir()
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    run = train(config, str(log_dir), dataset, seed=SEED, device=device)
+    launches = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
 
-        steps = LOOP_EPOCHS * steps_per_epoch
-        if run.steps != steps or run.epochs != list(range(LOOP_EPOCHS)):
-            raise AssertionError(f"train loop: {run.steps} steps over epochs {run.epochs}")
-        want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()}
-        if launches != want:
-            raise AssertionError(f"train loop launch counts {launches} != expected {want}")
-        rows = _log_rows(log_dir)
-        if [it for it, _, _ in rows] != list(range(0, steps, LOOP_LOG_FREQ)):
-            raise AssertionError(f"train loop: log rows at {[it for it, _, _ in rows]}")
-        for it, values, _ in rows:
-            if list(values) != names or not all(math.isfinite(v) for v in values.values()):
-                raise AssertionError(f"train loop: bad log row {it}: {values}")
-        gifs = sorted(p.name for p in (log_dir / "train-vis").iterdir())
-        if gifs != [f"{it:08d}-rec.gif" for it, _, _ in rows]:
-            raise AssertionError(f"train loop: train-vis holds {gifs}")
-        cpks = [log_dir / checkpoint_name(e) for e in range(LOOP_EPOCHS)]
-        if not all(p.exists() for p in cpks):
-            raise AssertionError(f"train loop: missing checkpoints in {sorted(os.listdir(log_dir))}")
+    steps = LOOP_EPOCHS * steps_per_epoch
+    if run.steps != steps or run.epochs != list(range(LOOP_EPOCHS)):
+        raise AssertionError(f"train loop: {run.steps} steps over epochs {run.epochs}")
+    want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()}
+    if launches != want:
+        raise AssertionError(f"train loop launch counts {launches} != expected {want}")
+    rows = _log_rows(log_dir)
+    if [it for it, _, _ in rows] != list(range(0, steps, LOOP_LOG_FREQ)):
+        raise AssertionError(f"train loop: log rows at {[it for it, _, _ in rows]}")
+    for it, values, _ in rows:
+        if list(values) != names or not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"train loop: bad log row {it}: {values}")
+    gifs = sorted(p.name for p in (log_dir / "train-vis").iterdir())
+    if gifs != [f"{it:08d}-rec.gif" for it, _, _ in rows]:
+        raise AssertionError(f"train loop: train-vis holds {gifs}")
+    cpks = [log_dir / checkpoint_name(e) for e in range(LOOP_EPOCHS)]
+    if not all(p.exists() for p in cpks):
+        raise AssertionError(f"train loop: missing checkpoints in {sorted(os.listdir(log_dir))}")
 
-        # The last checkpoint is also the exit save: the trainer's final state.
-        tensors = _same_state(load_checkpoint(str(cpks[-1])),
-                              {**run.trainer.state_dict(), "epoch": LOOP_EPOCHS - 1,
-                               "it": steps - 1}, "final state")
-        # A fresh trainer restores the epoch-0 checkpoint bit for bit.
-        saved = load_checkpoint(str(cpks[0]))
-        trainer = Trainer(build_train_models(config, device=device, seed=SEED + 1), tp,
-                          device=device, steps_per_epoch=steps_per_epoch)
-        trainer.load_state_dict(saved)
-        restored = _same_state({**trainer.state_dict(), "epoch": saved["epoch"],
-                                "it": saved["it"]}, saved, "restored state")
-        lrs = {name: trainer.schedulers[name].get_last_lr() for name in trainer.schedulers}
-        for name, lr in lrs.items():
-            if lr != saved[f"scheduler_{name}"]["_last_lr"]:
-                raise AssertionError(f"resume: {name} learning rate {lr}")
-        del trainer
+    # The last checkpoint is also the exit save: the trainer's final state.
+    tensors = _same_state(load_checkpoint(str(cpks[-1])),
+                          {**run.trainer.state_dict(), "epoch": LOOP_EPOCHS - 1,
+                           "it": steps - 1}, "final state")
+    # A fresh trainer restores the epoch-0 checkpoint bit for bit.
+    saved = load_checkpoint(str(cpks[0]))
+    trainer = Trainer(build_train_models(config, device=device, seed=SEED + 1), tp,
+                      device=device, steps_per_epoch=steps_per_epoch)
+    trainer.load_state_dict(saved)
+    restored = _same_state({**trainer.state_dict(), "epoch": saved["epoch"],
+                            "it": saved["it"]}, saved, "restored state")
+    lrs = {name: trainer.schedulers[name].get_last_lr() for name in trainer.schedulers}
+    for name, lr in lrs.items():
+        if lr != saved[f"scheduler_{name}"]["_last_lr"]:
+            raise AssertionError(f"resume: {name} learning rate {lr}")
+    del trainer
 
-        resume_config = copy.deepcopy(config)
-        resume_config["train_params"]["num_epochs"] = 1
-        resumed = train(resume_config, str(resume_dir), dataset, checkpoint=str(cpks[0]),
-                        seed=SEED, device=device)
-        resumed_rows = _log_rows(resume_dir)
-        if resumed.epochs != [0] or resumed.steps != steps_per_epoch:
-            raise AssertionError(f"resume: trained epochs {resumed.epochs}, {resumed.steps} steps")
-        # The resumed run counts on from the checkpoint's `it`.
-        want_its = [i for i in range(saved["it"], saved["it"] + steps_per_epoch)
-                    if i % LOOP_LOG_FREQ == 0]
-        if [it for it, _, _ in resumed_rows] != want_its or not all(
-                math.isfinite(v) for _, values, _ in resumed_rows for v in values.values()):
-            raise AssertionError(f"resume: log rows {resumed_rows}")
-        wall_s, wait_s = run.wall_s, run.loader_wait_s
-        del run, resumed
+    resume_config = copy.deepcopy(config)
+    resume_config["train_params"]["num_epochs"] = 1
+    resumed = train(resume_config, str(resume_dir), dataset, checkpoint=str(cpks[0]),
+                    seed=SEED, device=device)
+    resumed_rows = _log_rows(resume_dir)
+    if resumed.epochs != [0] or resumed.steps != steps_per_epoch:
+        raise AssertionError(f"resume: trained epochs {resumed.epochs}, {resumed.steps} steps")
+    # The resumed run counts on from the checkpoint's `it`.
+    want_its = [i for i in range(saved["it"], saved["it"] + steps_per_epoch)
+                if i % LOOP_LOG_FREQ == 0]
+    if [it for it, _, _ in resumed_rows] != want_its or not all(
+            math.isfinite(v) for _, values, _ in resumed_rows for v in values.values()):
+        raise AssertionError(f"resume: log rows {resumed_rows}")
+    wall_s, wait_s = run.wall_s, run.loader_wait_s
+    del run, resumed
 
     # Trainer.step alone: same config and batch, float batches on the card.
     trainer = Trainer(build_train_models(config, device=device, seed=SEED), tp,
@@ -1388,6 +1433,7 @@ def train_loop_phase(device="cuda") -> dict:
     loop_sps = [sps for _, _, sps in rows]
     result = {
         "phase": "train_loop", "config": "configs/shapes.yaml", "videos": LOOP_VIDEOS,
+        "checkpoint": str(cpks[-1]),
         "batch": tp["batch_size"], "epochs": LOOP_EPOCHS, "steps": steps,
         "reader": reader, "launches": launches, "expected_launches": want,
         # the loop's rate: its steps over its wall time, first batch to the
@@ -1419,13 +1465,227 @@ def train_loop_phase(device="cuda") -> dict:
     return result
 
 
+# ---- phase 6: the eval paths ---------------------------------------------------
+
+# configs/shapes.yaml cut to size: the first EVAL_VIDEOS test videos of
+# data/shapes (32 frames each) for reconstruction (num_videos EVAL_VIDEOS - 1:
+# reconstruction's bound takes one more), EVAL_PAIRS transfer pairs a route, and
+# prediction with PREDICTION_EPOCHS epochs over PREDICTION_TRAIN_SIZE + 1
+# train videos and the same test videos; every width as shipped.
+EVAL_VIDEOS = 4
+EVAL_PAIRS = 4
+PREDICTION_EPOCHS = 20
+PREDICTION_TRAIN_SIZE = 15
+HULL_RECIPE = {"movement_mult": True, "move_location": True, "adapt_variance": True,
+               "clip_mean": True}
+# The hull's area ratio scales every driving displacement, so the keypoint
+# gaps of PARITY_OUT_TOL can grow a few times in the normalised keypoints.
+KP_NORM_TOL = 1e-3
+
+
+def _counted(label: str, smi: str, want: dict, fn):
+    """fn() with the kernels' launch counts set to 0 just before and read
+    just after; they must equal `want`. Prints the step's wall time beside
+    the card; returns (fn's result, launches, seconds)."""
+    import torch
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    for counter in counters.values():
+        counter.launches = 0
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {name: counter.launches for name, counter in counters.items()}
+    if launches != want:
+        raise AssertionError(f"{label}: launch counts {launches} != expected {want}")
+    log(f"eval {label}: {seconds:.3f} s wall on {smi}")
+    return out, launches, seconds
+
+
+def _expect_files(directory: Path, names, fmt: str, label: str) -> None:
+    want_png = sorted(name + ".png" for name in names)
+    want_vis = sorted(name + fmt for name in names)
+    got_png = sorted(os.listdir(directory / "png"))
+    got_vis = sorted(p for p in os.listdir(directory) if p != "png")
+    if got_png != want_png or got_vis != want_vis:
+        raise AssertionError(f"{label}: wrote {got_png} and {got_vis}")
+    for name in want_png + want_vis:
+        path = directory / "png" / name if name.endswith(".png") else directory / name
+        if path.stat().st_size == 0:
+            raise AssertionError(f"{label}: {path} is empty")
+
+
+def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict:
+    """The eval drivers on the train loop's last checkpoint (configs/shapes.yaml,
+    full width, f32), each with its launches counted: (a) reconstruction, and
+    again at the random weights the loop started from, which it must beat in
+    L1; (b) transfer on both routes; (c) one reconstruction video and one
+    hull-and-covariance pair on the card against the CPU, stage by stage;
+    (d) prediction;
+    (e) the demo on configs/moving-gif.yaml at 128^2 from random weights."""
+    import copy
+
+    import torch
+    from PIL import Image
+
+    from monkeynet_tpu_torch.data.dataset import FramesDataset, PairedDataset
+    from monkeynet_tpu_torch.data.io import read_video
+    from monkeynet_tpu_torch.demo import run_demo
+    from monkeynet_tpu_torch.tasks.animate import Animator, KPExtractor
+    from monkeynet_tpu_torch.tasks.build import build_models
+    from monkeynet_tpu_torch.tasks.prediction import prediction
+    from monkeynet_tpu_torch.tasks.reconstruction import (load_eval_models, reconstruction,
+                                                          to_numpy)
+    from monkeynet_tpu_torch.tasks.transfer import transfer, transfer_one
+    from monkeynet_tpu_torch.utils.checkpoint import save_checkpoint
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    config = load_config(str(REPO / "configs" / "shapes.yaml"))
+    config["dataset_params"]["root_dir"] = str(REPO / "data" / "shapes")
+    config["reconstruction_params"]["num_videos"] = EVAL_VIDEOS - 1
+    config["transfer_params"]["num_pairs"] = EVAL_PAIRS
+    test = FramesDataset(is_train=False, **config["dataset_params"])
+    test.images = test.images[:EVAL_VIDEOS]
+    names = list(test.images)
+    result = {"phase": "eval", "config": "configs/shapes.yaml", "checkpoint": checkpoint,
+              "videos": EVAL_VIDEOS, "pairs": EVAL_PAIRS, "seconds": {}, "launches": {}}
+
+    def counted(label, want, fn):
+        out, launches, seconds = _counted(label, smi, want, fn)
+        result["launches"][label] = launches
+        result["seconds"][label] = seconds
+        return out
+
+    # (a) reconstruction: per video one chunk (32 frames), the source and the
+    # chunk through the kp detector, and the generated frames through it again
+    out_dir = work_dir / "eval_trained"
+    metrics = counted("reconstruction", _route_launches(config, EVAL_VIDEOS, 3 * EVAL_VIDEOS),
+                      lambda: reconstruction(config, str(out_dir), test, checkpoint,
+                                             device=device))
+    _expect_files(out_dir / "reconstruction", names, ".gif", "reconstruction")
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"reconstruction: metrics {metrics}")
+    initial = str(work_dir / "initial.pth.tar")
+    generator, kp_detector = build_models(config, device=device, seed=SEED)
+    save_checkpoint(initial, {"generator": generator.state_dict(),
+                              "kp_detector": kp_detector.state_dict()})
+    del generator, kp_detector
+    initial_metrics = reconstruction(config, str(work_dir / "eval_initial"), test, initial,
+                                     device=device)
+    if not metrics["l1"] < initial_metrics["l1"]:
+        raise AssertionError(f"reconstruction: L1 {metrics['l1']} after training, "
+                             f"{initial_metrics['l1']} at the initial weights")
+    result["metrics"], result["initial_metrics"] = metrics, initial_metrics
+
+    # (b) transfer, both routes: the config's recipe in a TransferEngine, and
+    # the hull and covariance recipe through KPExtractor, normalize_kp and
+    # Animator; each pair two kp detector calls and one generator call
+    pairs = PairedDataset(test, EVAL_PAIRS)
+    pair_names = ["-".join([names[d], names[s]]) for d, s in pairs.pairs]
+    for route, norm in (("transfer_engine", config["transfer_params"]["normalization_params"]),
+                        ("transfer_hull", HULL_RECIPE)):
+        route_config = copy.deepcopy(config)
+        route_config["transfer_params"]["normalization_params"] = dict(norm)
+        counted(route, _route_launches(config, EVAL_PAIRS, 2 * EVAL_PAIRS),
+                lambda: transfer(route_config, str(work_dir / route), test, checkpoint,
+                                 device=device))
+        _expect_files(work_dir / route / "transfer", pair_names, ".gif", route)
+
+    # (c) the card against the CPU from the same checkpoint, stage by stage:
+    # the keypoints (and the normalised ones) to their tolerances, then the
+    # generator on both devices from the card's keypoints to PARITY_OUT_TOL.
+    # The chained outputs' gap is reported: a keypoint gap d moves a hard
+    # edge of a shapes frame by d (H - 1) / 2 pixels, which the outputs'
+    # tolerance does not cover (the hull pair's chained video_deformed read
+    # 1.5e-3 against the CPU's in the first run).
+    x = pairs[0]
+    cases = {"reconstruction": (test[0]["video"][None, :1], test[0]["video"][None], {}),
+             "transfer_hull": (x["source_video"][None, :1], x["driving_video"][None],
+                               HULL_RECIPE)}
+    models = {dev: load_eval_models(config, checkpoint, device=dev) for dev in ("cpu", device)}
+    parity = {}
+    for label, (source, driving, norm) in cases.items():
+        chain = {dev: transfer_one(Animator(gen, device=dev), KPExtractor(kp, device=dev),
+                                   source, driving, {"normalization_params": norm})
+                 for dev, (gen, kp) in models.items()}
+        card = chain[device]
+        same_kp = to_numpy(Animator(models["cpu"][0], device="cpu")(
+            source, card["kp_norm"], card["kp_source"]))
+        errs = parity_errors(card, dict(chain["cpu"], **same_kp), f"eval parity {label}")
+        errs["kp_norm.mean"] = max_err(torch.as_tensor(card["kp_norm"]["mean"]),
+                                       torch.as_tensor(chain["cpu"]["kp_norm"]["mean"]))
+        check(f"eval parity {label} kp_norm.mean", errs["kp_norm.mean"], KP_NORM_TOL)
+        for key in ("video_prediction", "video_deformed"):
+            errs[f"chained.{key}"] = max_err(torch.as_tensor(card[key]),
+                                             torch.as_tensor(chain["cpu"][key]))
+        parity[label] = errs
+    del models
+    result["parity"] = {"max_abs_err": parity,
+                        "tol": dict(PARITY_OUT_TOL, **{"kp_norm.mean": KP_NORM_TOL})}
+
+    # (d) prediction: the train split and the first EVAL_VIDEOS test videos
+    # (linked into a directory of their own); a kp detector call per train
+    # video swept, two per test video, and one generator call per test video
+    pred_root = work_dir / "prediction_data"
+    (pred_root / "test").mkdir(parents=True)
+    os.symlink(REPO / "data" / "shapes" / "train", pred_root / "train")
+    for name in names:
+        os.symlink(REPO / "data" / "shapes" / "test" / name, pred_root / "test" / name)
+    pconfig = copy.deepcopy(config)
+    pconfig["dataset_params"]["root_dir"] = str(pred_root)
+    pconfig["prediction_params"].update(num_epochs=PREDICTION_EPOCHS,
+                                        train_size=PREDICTION_TRAIN_SIZE)
+    predicted = counted(
+        "prediction",
+        _route_launches(config, EVAL_VIDEOS, PREDICTION_TRAIN_SIZE + 1 + 2 * EVAL_VIDEOS),
+        lambda: prediction(pconfig, str(work_dir / "predict"), checkpoint, device=device))
+    losses = predicted["losses"]
+    if len(losses) != PREDICTION_EPOCHS or not losses[-1] < losses[0] or predicted[
+            "videos"] != EVAL_VIDEOS:
+        raise AssertionError(f"prediction: {predicted}")
+    _expect_files(work_dir / "predict" / "prediction", names, ".gif", "prediction")
+    result["prediction"] = predicted
+
+    # (e) the demo: configs/moving-gif.yaml at 128^2, full width, random
+    # weights; the driving frames in one chunk
+    mconfig = load_config(str(REPO / "configs" / "moving-gif.yaml"))
+    generator, kp_detector = build_models(mconfig, device=device, seed=SEED)
+    demo_ckpt = str(work_dir / "moving-gif-random.pth.tar")
+    save_checkpoint(demo_ckpt, {"generator": generator.state_dict(),
+                                "kp_detector": kp_detector.state_dict()})
+    del generator, kp_detector
+    driving = REPO / "data" / "demo" / "driving.png"
+    frames = read_video(str(driving), (128, 128, 3)).shape[0]
+    gif = work_dir / "demo.gif"
+    counted("demo", _route_launches(mconfig, 1, 2),
+            lambda: run_demo(mconfig, demo_ckpt, str(driving),
+                             str(REPO / "data" / "demo" / "source.png"), str(gif),
+                             (128, 128), device=device))
+    with Image.open(gif) as im:
+        if im.n_frames != frames or im.size != (128, 128):
+            raise AssertionError(f"demo: gif of {im.n_frames} frames at {im.size}, "
+                                 f"want {frames} at 128^2")
+    result["demo_frames"] = frames
+
+    result["eval_launches"] = {name: sum(launches[name] for launches in
+                                         result["launches"].values())
+                               for name in _counters()}
+    log(result)
+    log(f"eval: reconstruction L1 {metrics['l1']:.6f}, AKD {metrics['akd']:.4f} px, AED "
+        f"{metrics['aed']:.4f} (initial weights: L1 {initial_metrics['l1']:.6f}); prediction "
+        f"loss {losses[0]:.5f} -> {losses[-1]:.5f} over {len(losses)} epochs")
+    return result
+
+
 def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
-                 loop_launches: dict) -> dict:
+                 loop_launches: dict, eval_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; every path's counts are also
     given under its own name (`train_loop_launches`: the train loop's 64
-    steps). Times are per transfer chunk (forward kernels)
+    steps; `eval_launches`: the counted steps of eval_phase). Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
     shape, the second warp of the source frame that the path no longer
@@ -1455,7 +1715,8 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                "launches": launches[name], **numbers(summary[key]),
                "transfer_launches": transfer_launches[name],
                "train_launches": train_launches[name],
-               "train_loop_launches": loop_launches[name]}
+               "train_loop_launches": loop_launches[name],
+               "eval_launches": eval_launches[name]}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
@@ -1514,11 +1775,13 @@ def main() -> int:
     train_parity(load_config(str(REPO / "configs" / "shapes.yaml")), "shapes")
     runs = [main_path(config, torch.bfloat16), main_path(config, torch.float32)]
     train_runs = [train_path(config, "bfloat16"), train_path(config, None)]
-    loop = train_loop_phase()
+    with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
+        loop = train_loop_phase(Path(work))
+        evals = eval_phase(loop["checkpoint"], Path(work), smi)
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
     print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
-                                  loop["launches"])), flush=True)
+                                  loop["launches"], evals["eval_launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

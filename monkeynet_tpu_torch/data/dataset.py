@@ -4,11 +4,13 @@ Counterpart of `FramesDataset` in monkeynet_tpu/data/dataset.py, with the
 reference's behaviour (frames_dataset.py:43-131): predefined train/test
 subfolders or a random 80/20 split (sklearn's split with the reference's
 seed, rebuilt here in numpy); train items go through the augmentation
-pipeline, test items are returned whole.
+pipeline, test items are returned whole. `PairedDataset` pairs videos for
+transfer, from a CSV pairs list or by seeded random index pairs.
 """
 
 from __future__ import annotations
 
+import csv
 import os
 from typing import Optional
 
@@ -83,4 +85,43 @@ class FramesDataset:
         except TypeError:
             out = self.transform(video)
         out["name"] = os.path.basename(name)
+        return out
+
+
+class PairedDataset:
+    """(driving, source) pairs for transfer mode: the first
+    `number_of_pairs` rows of the dataset's `pairs_list` CSV (columns
+    'source' and 'driving') whose videos both exist, or else
+    `number_of_pairs` distinct index pairs drawn from the
+    min(number_of_pairs, len)^2 grid by np.random.RandomState(seed), as the
+    JAX package draws them."""
+
+    def __init__(self, initial_dataset: FramesDataset, number_of_pairs: int, seed: int = 0):
+        self.initial_dataset = initial_dataset
+        pairs_list = initial_dataset.pairs_list
+        rng = np.random.RandomState(seed)
+
+        if pairs_list is None:
+            max_idx = min(number_of_pairs, len(initial_dataset))
+            xy = np.mgrid[:max_idx, :max_idx].reshape(2, -1).T
+            number_of_pairs = min(xy.shape[0], number_of_pairs)
+            choice = rng.choice(xy.shape[0], number_of_pairs, replace=False)
+            self.pairs = [tuple(p) for p in xy[choice]]
+        else:
+            name_to_index = {name: i for i, name in enumerate(initial_dataset.images)}
+            with open(pairs_list, newline="") as f:
+                rows = [row for row in csv.DictReader(f)
+                        if row["source"] in name_to_index and row["driving"] in name_to_index]
+            self.pairs = [(name_to_index[row["driving"]], name_to_index[row["source"]])
+                          for row in rows[:number_of_pairs]]
+
+    def __len__(self):
+        return len(self.pairs)
+
+    def __getitem__(self, idx):
+        driving_idx, source_idx = self.pairs[idx]
+        first = self.initial_dataset[driving_idx]
+        second = self.initial_dataset[source_idx]
+        out = {f"driving_{k}": v for k, v in first.items()}
+        out.update({f"source_{k}": v for k, v in second.items()})
         return out

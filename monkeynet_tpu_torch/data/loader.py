@@ -1,9 +1,9 @@
 """Threaded, bounded batch loader and the feeder that stages batches on the card.
 
 Counterpart of monkeynet_tpu/data/loader.py: `collate`, `quantize_feed` and
-`DataLoader` are copies (the loader with only the train loop's walk: one
-process, shuffled, the last partial batch dropped), so the port sees the
-JAX package's batches exactly (the shuffle keyed by (seed, epoch), the
+`DataLoader` are copies (the loader in one process, without the JAX
+package's shard options), so the port sees the JAX package's batches
+exactly (the shuffle keyed by (seed, epoch), the
 per-item RNG by (seed, epoch, batch, position), one persistent worker pool
 across epochs, and at most `prefetch + num_workers - 1` decoded batches in
 flight: a semaphore gates
@@ -51,13 +51,17 @@ def quantize_feed(batch, keys=("source", "video")):
 
 
 class DataLoader:
-    """Batches of `dataset` for training: shuffled every epoch, the last
-    partial batch dropped (the JAX package's `shuffle=True, drop_last=True`)."""
+    """Batches of `dataset`. The defaults are the train loop's walk:
+    shuffled every epoch, the last partial batch dropped. `shuffle=False,
+    drop_last=False` walks in order and keeps the last partial batch (the
+    keypoint predictor's windows)."""
 
     def __init__(
         self,
         dataset,
         batch_size: int,
+        shuffle: bool = True,
+        drop_last: bool = True,
         num_workers: int = 4,
         seed: int = 0,
         prefetch: int = 2,
@@ -65,6 +69,8 @@ class DataLoader:
     ):
         self.dataset = dataset
         self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch = max(1, prefetch)
@@ -75,12 +81,16 @@ class DataLoader:
         self.epoch = 0
 
     def __len__(self):
-        return len(self.dataset) // self.batch_size
+        n = len(self.dataset)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     def _batch_indices(self, epoch: int):
-        order = np.arange(len(self.dataset))
-        np.random.default_rng(self.seed + epoch).shuffle(order)
-        for i in range(0, len(self) * self.batch_size, self.batch_size):
+        n = len(self.dataset)
+        order = np.arange(n)
+        if self.shuffle:
+            np.random.default_rng(self.seed + epoch).shuffle(order)
+        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
+        for i in range(0, stop, self.batch_size):
             yield order[i : i + self.batch_size]
 
     def _load_batch(self, epoch: int, bi: int, idxs) -> dict:
@@ -98,6 +108,10 @@ class DataLoader:
         if self.postprocess is not None:
             batch = self.postprocess(batch)
         return batch
+
+    def __iter__(self) -> Iterator[dict]:
+        """One epoch at self.epoch (then bumps it): a 1-epoch stream()."""
+        return (batch for _, batch in self.stream(1))
 
     def stream(self, num_epochs: int) -> Iterator[tuple]:
         """Yield (epoch, batch) across `num_epochs` epochs starting at

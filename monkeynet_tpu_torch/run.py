@@ -1,14 +1,19 @@
-"""The port's command line: train on the card.
+"""The port's command line: train, reconstruction, transfer and prediction on the card.
 
     python -m monkeynet_tpu_torch.run --config configs/shapes.yaml --mode train
-    python -m monkeynet_tpu_torch.run --config configs/shapes.yaml --mode train \\
-        --checkpoint "log/shapes <date>/00000003-checkpoint.pth.tar"
+    python -m monkeynet_tpu_torch.run --config configs/shapes.yaml --mode reconstruction \\
+        --checkpoint "log/shapes <date>/00000007-checkpoint.pth.tar"
+    python -m monkeynet_tpu_torch.run --config configs/shapes.yaml --mode transfer \\
+        --checkpoint ...
+    python -m monkeynet_tpu_torch.run --config configs/shapes.yaml --mode prediction \\
+        --checkpoint ...
 
-Counterpart of the repository's run.py (the JAX package's CLI) for
-`--mode train`: a timestamped log directory (or the checkpoint's own when
-resuming) with the config copied in, then `train` on the config's dataset.
-Reconstruction, transfer and prediction are not ported yet (ROADMAP item 6)
-and exit with an error. It runs on the card and refuses to start without one.
+Counterpart of the repository's run.py (the JAX package's CLI): a
+timestamped log directory (or the checkpoint's own) with the config copied
+in, the config's dataset (its train split for train, its test split for
+the rest), then the mode. Train resumes from `--checkpoint`; the eval modes
+need one (a `.pth.tar` the port wrote, or one in the reference's form). It
+runs on the card and refuses to start without one.
 """
 
 from __future__ import annotations
@@ -23,31 +28,55 @@ def main(argv=None) -> int:
     parser.add_argument("--mode", default="train",
                         choices=["train", "reconstruction", "transfer", "prediction"])
     parser.add_argument("--log_dir", default="log", help="root log directory")
-    parser.add_argument("--checkpoint", default=None, help="checkpoint to resume from")
+    parser.add_argument("--checkpoint", default=None,
+                        help="checkpoint to resume from (train) or to evaluate")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile", default=None, metavar="DIR",
                         help="write a torch.profiler trace of train steps 10-20 into DIR")
+    parser.add_argument("--verbose", action="store_true", help="print models")
     opt = parser.parse_args(argv)
 
-    if opt.mode != "train":
-        print(f"--mode {opt.mode} is not ported to monkeynet_tpu_torch yet (ROADMAP item 6); "
-              "run.py runs it on the JAX package", file=sys.stderr)
-        return 2
-
     from monkeynet_tpu_torch.data.dataset import FramesDataset
-    from monkeynet_tpu_torch.tasks.train_loop import train
     from monkeynet_tpu_torch.utils.config import load_config, prepare_log_dir
     from monkeynet_tpu_torch.utils.device import require_device
 
     device = require_device("cuda")
     config = load_config(opt.config)
     log_dir = prepare_log_dir(opt.config, opt.log_dir, opt.checkpoint)
-    dataset = FramesDataset(is_train=True, **config["dataset_params"])
-    print("Training...")
-    run = train(config, log_dir, dataset, checkpoint=opt.checkpoint, seed=opt.seed,
-                profile_dir=opt.profile, device=device)
-    print(f"{run.steps} steps in {run.wall_s:.3f} s, {run.loader_wait_s:.3f} s of it "
-          f"waiting on the loader; log and checkpoints in {log_dir}")
+
+    if opt.verbose:
+        from monkeynet_tpu_torch.tasks.build import build_train_models
+
+        for model in build_train_models(config, device=device).values():
+            print(model)
+
+    dataset = FramesDataset(is_train=(opt.mode == "train"), **config["dataset_params"])
+    if opt.mode == "train":
+        print("Training...")
+        from monkeynet_tpu_torch.tasks.train_loop import train
+
+        run = train(config, log_dir, dataset, checkpoint=opt.checkpoint, seed=opt.seed,
+                    profile_dir=opt.profile, device=device)
+        print(f"{run.steps} steps in {run.wall_s:.3f} s, {run.loader_wait_s:.3f} s of it "
+              f"waiting on the loader; log and checkpoints in {log_dir}")
+    elif opt.mode == "reconstruction":
+        print("Reconstruction...")
+        from monkeynet_tpu_torch.tasks.reconstruction import reconstruction
+
+        reconstruction(config, log_dir, dataset, opt.checkpoint, device=device)
+    elif opt.mode == "transfer":
+        print("Transfer...")
+        from monkeynet_tpu_torch.tasks.transfer import transfer
+
+        transfer(config, log_dir, dataset, opt.checkpoint, device=device)
+    else:
+        print("Prediction...")
+        from monkeynet_tpu_torch.tasks.prediction import prediction
+
+        # prediction reads the config's train and test splits itself
+        out = prediction(config, log_dir, opt.checkpoint, seed=opt.seed, device=device)
+        print(f"predictor loss {out['losses'][0]:.5f} in epoch 0, {out['losses'][-1]:.5f} in "
+              f"epoch {len(out['losses']) - 1}; {out['videos']} test videos rendered")
     return 0
 
 

@@ -1,4 +1,4 @@
-"""Frame-batched inference: TransferEngine and Animator.
+"""Frame-batched inference: TransferEngine, Animator and KPExtractor.
 
 Counterpart of monkeynet_tpu/tasks/animate.py. Every frame is independent
 given its keypoints, so the generator takes all driving frames of a chunk at
@@ -18,6 +18,7 @@ from __future__ import annotations
 import copy
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from monkeynet_tpu_torch.utils.device import require_device
@@ -104,9 +105,10 @@ class TransferEngine:
     """The whole transfer pipeline per frame chunk: driving-kp detection,
     the relative move_location normalisation, and generation.
 
-    Covers the default normalisation (move_location / clip_mean, reference
-    transfer.py:42-50); convex-hull scale adaptation and covariance
-    adaptation are not ported yet.
+    Covers the normalisations that are tensor math (move_location /
+    clip_mean, reference transfer.py:42-50); the convex-hull scale and
+    covariance adaptations run on the host between a KPExtractor and an
+    Animator (tasks/transfer.py `transfer_one`).
     """
 
     def __init__(self, generator, kp_detector, chunk: int = 128,
@@ -166,3 +168,36 @@ class TransferEngine:
             "kp_norm": {k: _cat([o[k] for o in norms]) for k in norms[0]},
             "kp_source": kp_source,
         }
+
+
+class KPExtractor:
+    """The keypoint detector over fixed-size chunks of frames."""
+
+    def __init__(self, kp_detector, chunk: int = 128, dtype: Optional[torch.dtype] = None,
+                 device="cuda"):
+        self.device = require_device(device)
+        self.granularity = 16
+        self.chunk = -(-chunk // self.granularity) * self.granularity
+        self.dtype = dtype
+        self.kp_detector = _for_inference(kp_detector, self.device, dtype)
+
+    def __call__(self, video) -> Dict[str, np.ndarray]:
+        """video (B, D, H, W, C) -> kp dict of numpy (B, D, K, ...)."""
+        return {k: v.cpu().numpy() for k, v in self.device_call(video).items()}
+
+    @torch.no_grad()
+    def device_call(self, video) -> Dict[str, torch.Tensor]:
+        """video (B, D, H, W, C), numpy or a tensor -> kp dict of f32 device
+        tensors (B, D, K, ...)."""
+        video = torch.as_tensor(video, device=self.device)
+        if self.dtype is not None:
+            video = video.to(self.dtype)
+        d = video.shape[1]
+        outs = []
+        for start in range(0, d, self.chunk):
+            part = video[:, start : start + self.chunk]
+            n_valid = part.shape[1]
+            part = _pad_frames(part, _bucket(n_valid, self.chunk, self.granularity))
+            kp = self.kp_detector(part)
+            outs.append({k: v[:, :n_valid].float() for k, v in kp.items()})
+        return {k: _cat([o[k] for o in outs]) for k in outs[0]}

@@ -11,6 +11,13 @@ Names follow the reference's checkpoint keys:
                                       (batch norms and the discriminator's
                                       instance norms alike)
   batch_stats mean / var           -> `<path>.running_mean` / `.running_var`
+A bare `Encoder` tree (the frozen AED embedder's) maps the same way, to an
+`Encoder`'s state_dict. The keypoint predictor's tree maps to its
+`torch.nn.GRU` and head:
+  gru{l} weight_ih / weight_hh / bias_ih / bias_hh
+                                   -> `gru.weight_ih_l{l}` ... (both in
+                                      torch's layout and [r, z, n] order)
+  head kernel (in, out) / bias     -> `head.weight` (out, in) / `head.bias`
 """
 
 from __future__ import annotations
@@ -68,6 +75,13 @@ def _key(path, collection: str) -> Tuple[str, str]:
     """(torch key, kind) for one flax leaf path."""
     parts = list(path)
     leaf = parts.pop()
+    if collection == "params" and len(parts) == 1:
+        gru = re.fullmatch(r"gru(\d+)", parts[0])
+        if gru:
+            return f"gru.{leaf}_l{gru.group(1)}", "plain"
+        if parts[0] == "head" and leaf in ("kernel", "bias"):
+            return f"head.{'weight' if leaf == 'kernel' else 'bias'}", (
+                "dense" if leaf == "kernel" else "plain")
     if collection == "batch_stats":
         return _join(parts, f"running_{leaf}"), "stat"
     if parts and parts[-1] == "conv" and leaf in ("kernel", "bias"):
@@ -92,6 +106,8 @@ def from_jax_variables(params: Mapping[str, Any],
                 if v.ndim != 4:
                     raise ValueError(f"{key}: expected a (kh, kw, in, out) kernel, got {v.shape}")
                 v = v.transpose(3, 2, 0, 1)[:, :, None]  # (out, in/g, 1, kh, kw)
+            elif kind == "dense":
+                v = v.T  # (in, out) -> (out, in)
             sd[key] = torch.tensor(v)
             if kind == "stat" and key.endswith("running_mean"):
                 sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)

@@ -41,7 +41,12 @@ from monkeynet_tpu_torch.tasks.train import MODEL_NAMES, Trainer
 from monkeynet_tpu_torch.utils.checkpoint import checkpoint_name, save_checkpoint
 from monkeynet_tpu_torch.utils.weights import from_jax_variables
 
-from .torch_port_common import jax_variables, port_train_models, train_config
+from .torch_port_common import (
+    init_models_once,
+    jax_variables,
+    port_train_models,
+    train_config,
+)
 
 HW = 16
 EPOCHS = 2
@@ -93,24 +98,6 @@ def _restore_adam_moments_unshared(opt_state, step, mu, nu):
 _RESTORE_ADAM_MOMENTS = jtrain.restore_adam_moments
 
 
-def _init_models_once():
-    """`init_models` that initialises once and hands the same result to
-    every later call with the same arguments. The JAX package's init takes
-    ~20 s at these widths on the CPU, and its train() calls it before it
-    overwrites the weights with the checkpoint's."""
-    original, done = jbuild.init_models, {}
-
-    def init_models(config, rng, image_shape, axis_name=None):
-        key = (repr(config["model_params"]), tuple(np.asarray(jax.random.key_data(rng))
-                                                   .ravel().tolist()),
-               tuple(image_shape), axis_name)
-        if key not in done:
-            done[key] = original(config, rng, image_shape, axis_name=axis_name)
-        return done[key]
-
-    return init_models
-
-
 @pytest.fixture(scope="module")
 def runs(tmp_path_factory):
     """Both packages' fresh runs and resumed runs (two JAX train() calls)."""
@@ -130,7 +117,7 @@ def runs(tmp_path_factory):
     out = {"config": config, "dirs": dirs, "resume_from": resume_from,
            "jax_drawn": []}
     with pytest.MonkeyPatch.context() as mp:
-        init_models = _init_models_once()
+        init_models = init_models_once()
         mp.setattr(jbuild, "init_models", init_models)
         mp.setattr(jloop, "init_models", init_models)
         mp.setattr(jtrain, "restore_adam_moments", _restore_adam_moments_unshared)
@@ -294,8 +281,8 @@ def test_train_refuses_missing_cuda_and_several_devices(runs, monkeypatch):
 def test_cli_trains_on_the_cpu_and_refuses_the_rest(runs, tmp_path, monkeypatch, capsys):
     """`python -m monkeynet_tpu_torch.run`: train (on the CPU, the card's
     check answered with the CPU device) into a timestamped directory, with a
-    profiler trace of steps 10-20; refuse the missing card and the modes not
-    ported yet."""
+    profiler trace of steps 10-20; refuse the missing card, and an eval mode
+    without a checkpoint."""
     import yaml
 
     from monkeynet_tpu_torch import run
@@ -310,6 +297,8 @@ def test_cli_trains_on_the_cpu_and_refuses_the_rest(runs, tmp_path, monkeypatch,
     monkeypatch.setattr(device_mod, "require_device", lambda device: torch.device("cpu"))
     assert run.main(["--config", str(path), "--log_dir", str(tmp_path / "log"),
                      "--profile", str(tmp_path / "trace")]) == 0
+    with pytest.raises(ValueError, match="checkpoint is required"):
+        run.main(["--config", str(path), "--mode", "transfer", "--log_dir", str(tmp_path / "l")])
     monkeypatch.setattr(device_mod, "require_device", require_device)
     assert "12 steps in" in capsys.readouterr().out
     (log_dir,) = (tmp_path / "log").iterdir()
@@ -318,8 +307,6 @@ def test_cli_trains_on_the_cpu_and_refuses_the_rest(runs, tmp_path, monkeypatch,
     assert sorted(p.name for p in log_dir.iterdir()) == \
         sorted(["tiny.yaml", "log.txt", "train-vis", checkpoint_name(0), checkpoint_name(5)])
     assert (tmp_path / "trace" / "train_trace.json").stat().st_size > 0
-    assert run.main(["--config", str(path), "--mode", "transfer"]) == 2
-    assert "ROADMAP item 6" in capsys.readouterr().err
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         run.main(["--config", str(path), "--log_dir", str(tmp_path / "log2")])

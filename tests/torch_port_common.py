@@ -93,6 +93,30 @@ def jax_variables(config, seed=0, image_hw=(H, W)):
     return models, params, batch_stats
 
 
+def init_models_once():
+    """The JAX package's `init_models`, initialising once and handing the
+    same result to every later call with the same arguments. Its init takes
+    ~20 s at the test widths on the CPU, and its train() and
+    load_eval_models call it before they overwrite the weights with a
+    checkpoint's. Patch it into `monkeynet_tpu.tasks.build` and into each
+    module that imported it by name."""
+    import jax
+
+    from monkeynet_tpu.tasks import build as jbuild
+
+    original, done = jbuild.init_models, {}
+
+    def init_models(config, rng, image_shape, axis_name=None):
+        key = (repr(config["model_params"]), tuple(np.asarray(jax.random.key_data(rng))
+                                                   .ravel().tolist()),
+               tuple(image_shape), axis_name)
+        if key not in done:
+            done[key] = original(config, rng, image_shape, axis_name=axis_name)
+        return done[key]
+
+    return init_models
+
+
 def port_models(config, params, batch_stats):
     """The port's (generator, kp_detector) on the CPU with the JAX weights."""
     from monkeynet_tpu_torch.tasks.build import build_models
