@@ -225,22 +225,35 @@ def build_kernels() -> float:
 
 # ---- phase 2 ---------------------------------------------------------------
 
-def _warp_cases(device, gen):
-    """The warps of a chunk at each of WARP_SHAPES: the skip's plane, a grid
-    near the identity (every frame with noise of its own) and the identity
-    grid itself (pixel coordinates on, or within an ulp of, the integers)."""
+def _warp_cases(device, gen, shapes=WARP_SHAPES, frames=CHUNK):
+    """The warps of a chunk of `frames` at each of `shapes`: the skip's
+    plane, a grid near the identity (every frame with noise of its own) and
+    the identity grid itself (pixel coordinates on, or within an ulp of, the
+    integers)."""
     import torch
 
     from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
 
     cases = []
-    for C, h in WARP_SHAPES:
+    for C, h in shapes:
         src = torch.randn(1, h, h, C, generator=gen).to(device)
-        ident = make_coordinate_grid((h, h))[None, None].expand(1, CHUNK, h, h, 2)
-        grid = ident + 0.1 * torch.randn(1, CHUNK, h, h, 2, generator=gen)
-        cases.append((src, grid.reshape(1, CHUNK * h, h, 2).contiguous().to(device),
-                      ident.reshape(1, CHUNK * h, h, 2).contiguous().to(device)))
+        ident = make_coordinate_grid((h, h))[None, None].expand(1, frames, h, h, 2)
+        grid = ident + 0.1 * torch.randn(1, frames, h, h, 2, generator=gen)
+        cases.append((src, grid.reshape(1, frames * h, h, 2).contiguous().to(device),
+                      ident.reshape(1, frames * h, h, 2).contiguous().to(device)))
     return cases
+
+
+def _combine_inputs(frames, h, K1, gen, device):
+    """Mask logits, displacement table (the background's row zero) and
+    correction of a chunk of `frames` at h^2, batch 1."""
+    import torch
+
+    logits = (2.0 * torch.randn(1, frames, h, h, K1, generator=gen)).to(device)
+    diff = 0.1 * torch.randn(1, frames, K1, 2, generator=gen)
+    diff[:, :, 0] = 0.0
+    corr = (0.01 * torch.randn(1, frames, h, h, 2, generator=gen)).to(device)
+    return logits, diff.to(device), corr
 
 
 def kernel_phase(device) -> dict:
@@ -308,11 +321,7 @@ def kernel_phase(device) -> dict:
 
     # combine (f32): mask logits, displacement table and correction of a chunk
     K1 = 11
-    logits = (2.0 * torch.randn(1, CHUNK, HW, HW, K1, generator=gen)).to(device)
-    diff = (0.1 * torch.randn(1, CHUNK, K1, 2, generator=gen))
-    diff[:, :, 0] = 0.0
-    diff = diff.to(device)
-    corr = (0.01 * torch.randn(1, CHUNK, HW, HW, 2, generator=gen)).to(device)
+    logits, diff, corr = _combine_inputs(CHUNK, HW, K1, gen, device)
     err = max_err(combine.combine(logits, diff, corr), combine.combine_plain(logits, diff, corr))
     check("combine", err, 1e-5)
     px = CHUNK * HW * HW
@@ -877,17 +886,21 @@ def combine_backward_phase(device, batch=TRAIN_BATCH, K1=11, label="taichi") -> 
     return result
 
 
-def shapes_train_shapes(config) -> tuple:
-    """(batch, [(C, h) of each warp], K1) of a config's train step at 64^2:
-    the generator warps each encoder skip once (the first is the source
-    frame), and the combine mixes num_kp + 1 masks."""
+def config_warps(config, size: int) -> list:
+    """(C, h) of each warp of a config's generator on size^2 frames: the
+    generator warps each encoder skip once (the first is the source frame)."""
     gp = config["model_params"]["generator_params"]
     widths = [config["model_params"]["common_params"]["num_channels"]] + [
         min(gp["max_features"], gp["block_expansion"] * 2 ** (i + 1))
         for i in range(gp["num_blocks"])]
-    warps = [(C, HW >> i) for i, C in enumerate(widths)]
+    return [(C, size >> i) for i, C in enumerate(widths)]
+
+
+def shapes_train_shapes(config) -> tuple:
+    """(batch, [(C, h) of each warp], K1) of a config's train step at 64^2;
+    the combine mixes num_kp + 1 masks."""
     K1 = config["model_params"]["common_params"]["num_kp"] + 1
-    return config["train_params"]["batch_size"], warps, K1
+    return config["train_params"]["batch_size"], config_warps(config, HW), K1
 
 
 def loop_kernel_phase(device) -> dict:
@@ -922,6 +935,72 @@ def loop_kernel_phase(device) -> dict:
             rows.append(row)
     combine_row = combine_backward_phase(device, batch=B, K1=K1, label="shapes")
     return {"phase": "loop_kernels", "warp_rows": rows, "combine": combine_row}
+
+
+def eval_chunks() -> list:
+    """(label, config, size, frames) of each eval path's generator chunk
+    (eval_phase): configs/shapes.yaml at 64^2 over one test video of
+    data/shapes, and the demo, configs/moving-gif.yaml at 128^2 over
+    data/demo's driving frames; each chunk padded to its frame bucket."""
+    from monkeynet_tpu_torch.data.io import read_video
+    from monkeynet_tpu_torch.tasks.animate import _bucket
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    test_video = sorted((REPO / "data" / "shapes" / "test").iterdir())[0]
+    shapes_frames = read_video(str(test_video), (HW, HW, 3)).shape[0]
+    demo_frames = read_video(str(REPO / "data" / "demo" / "driving.png"),
+                             (128, 128, 3)).shape[0]
+    return [("shapes", load_config(str(REPO / "configs" / "shapes.yaml")), HW,
+             _bucket(shapes_frames, CHUNK)),
+            ("moving-gif demo", load_config(str(REPO / "configs" / "moving-gif.yaml")), 128,
+             _bucket(demo_frames, CHUNK))]
+
+
+def eval_kernel_phase(device) -> dict:
+    """The warp forward and the combine at the eval paths' chunks
+    (eval_chunks, batch 1): the warp at each encoder skip on a grid near the
+    identity and on the identity grid, f32 and bf16, with the plans and
+    L2-warm times; the combine at the dense motion's size and num_kp + 1
+    masks, f32; each against its plain version at kernel_phase's
+    tolerances."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import combine, warp
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    result = {"phase": "eval_kernels", "warp": [], "combine": []}
+    for label, config, size, frames in eval_chunks():
+        shapes = config_warps(config, size)
+        for dtype, tol_of in ((torch.float32, lambda ref: 1e-5),
+                              (torch.bfloat16, lambda ref: 2.0**-8 * ref.abs().max().item())):
+            for src, grid, ident in _warp_cases(device, gen, shapes, frames):
+                src = src.to(dtype)
+                B, H, W, C = src.shape
+                n = grid.shape[1] * grid.shape[2]
+                errs = {}
+                for kind, g in (("random", grid), ("identity", ident)):
+                    ref = warp.grid_sample(src.float(), g)
+                    errs[kind] = max_err(warp.warp(src, g), ref)
+                    check(f"warp {label} {dtype} C={C} {H}^2 {kind} grid", errs[kind],
+                          tol_of(ref))
+                row = {"kernel": "warp", "config": label, "dtype": str(dtype),
+                       "shape": [B, H, W, C], "points": n,
+                       "plan": warp.warp_plan(B, n, C, dtype, True, H * W)._asdict(),
+                       "max_abs_err": errs, "kernel_ms": time_ms(lambda: warp.warp(src, grid))}
+                log(row)
+                result["warp"].append(row)
+        dm = config["model_params"]["generator_params"]["dense_motion_params"]
+        h = int(size * dm.get("scale_factor", 1))
+        K1 = config["model_params"]["common_params"]["num_kp"] + 1
+        logits, diff, corr = _combine_inputs(frames, h, K1, gen, device)
+        err = max_err(combine.combine(logits, diff, corr),
+                      combine.combine_plain(logits, diff, corr))
+        check(f"combine {label}", err, 1e-5)
+        row = {"kernel": "combine", "config": label, "shape": list(logits.shape),
+               "max_abs_err": err, "kernel_ms": time_ms(lambda: combine.combine(logits, diff, corr))}
+        log(row)
+        result["combine"].append(row)
+    return result
 
 
 # ---- phase 3 ---------------------------------------------------------------
@@ -1481,6 +1560,11 @@ HULL_RECIPE = {"movement_mult": True, "move_location": True, "adapt_variance": T
 # The hull's area ratio scales every driving displacement, so the keypoint
 # gaps of PARITY_OUT_TOL can grow a few times in the normalised keypoints.
 KP_NORM_TOL = 1e-3
+# The chained outputs (the card's keypoints, normalised on the host, through
+# the card's generator, against the same chain on the CPU): a keypoint gap d
+# moves a hard edge of a shapes frame by d (H - 1) / 2 pixels. Three times
+# the largest gap two full runs read on the hull pair (1.53e-3, 1.73e-3).
+CHAINED_OUT_TOL = 5e-3
 
 
 def _counted(label: str, smi: str, want: dict, fn):
@@ -1522,9 +1606,9 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
     full width, f32), each with its launches counted: (a) reconstruction, and
     again at the random weights the loop started from, which it must beat in
     L1; (b) transfer on both routes; (c) one reconstruction video and one
-    hull-and-covariance pair on the card against the CPU, stage by stage;
-    (d) prediction;
-    (e) the demo on configs/moving-gif.yaml at 128^2 from random weights."""
+    hull-and-covariance pair on the card against the CPU, stage by stage and
+    chained; (d) prediction; (e) the demo on configs/moving-gif.yaml at
+    128^2 from random weights, on the card against the CPU."""
     import copy
 
     import torch
@@ -1595,11 +1679,9 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
 
     # (c) the card against the CPU from the same checkpoint, stage by stage:
     # the keypoints (and the normalised ones) to their tolerances, then the
-    # generator on both devices from the card's keypoints to PARITY_OUT_TOL.
-    # The chained outputs' gap is reported: a keypoint gap d moves a hard
-    # edge of a shapes frame by d (H - 1) / 2 pixels, which the outputs'
-    # tolerance does not cover (the hull pair's chained video_deformed read
-    # 1.5e-3 against the CPU's in the first run).
+    # generator on both devices from the card's keypoints to PARITY_OUT_TOL,
+    # and the chained outputs to CHAINED_OUT_TOL (PARITY_OUT_TOL does not
+    # cover a keypoint gap carried to a hard edge).
     x = pairs[0]
     cases = {"reconstruction": (test[0]["video"][None, :1], test[0]["video"][None], {}),
              "transfer_hull": (x["source_video"][None, :1], x["driving_video"][None],
@@ -1620,10 +1702,13 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
         for key in ("video_prediction", "video_deformed"):
             errs[f"chained.{key}"] = max_err(torch.as_tensor(card[key]),
                                              torch.as_tensor(chain["cpu"][key]))
+            check(f"eval parity {label} chained {key}", errs[f"chained.{key}"],
+                  CHAINED_OUT_TOL)
         parity[label] = errs
     del models
     result["parity"] = {"max_abs_err": parity,
-                        "tol": dict(PARITY_OUT_TOL, **{"kp_norm.mean": KP_NORM_TOL})}
+                        "tol": dict(PARITY_OUT_TOL, **{"kp_norm.mean": KP_NORM_TOL,
+                                                       "chained": CHAINED_OUT_TOL})}
 
     # (d) prediction: the train split and the first EVAL_VIDEOS test videos
     # (linked into a directory of their own); a kp detector call per train
@@ -1649,25 +1734,38 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
     result["prediction"] = predicted
 
     # (e) the demo: configs/moving-gif.yaml at 128^2, full width, random
-    # weights; the driving frames in one chunk
+    # weights; the driving frames in one chunk. Its outputs against the CPU's
+    # from the same checkpoint: the keypoints, and the generator on the CPU
+    # from the card's keypoints (the recipe, move_location off, passes the
+    # driving keypoints through), to PARITY_OUT_TOL
     mconfig = load_config(str(REPO / "configs" / "moving-gif.yaml"))
     generator, kp_detector = build_models(mconfig, device=device, seed=SEED)
     demo_ckpt = str(work_dir / "moving-gif-random.pth.tar")
     save_checkpoint(demo_ckpt, {"generator": generator.state_dict(),
                                 "kp_detector": kp_detector.state_dict()})
     del generator, kp_detector
-    driving = REPO / "data" / "demo" / "driving.png"
-    frames = read_video(str(driving), (128, 128, 3)).shape[0]
+    driving, source = (REPO / "data" / "demo" / "driving.png",
+                       REPO / "data" / "demo" / "source.png")
+    driving_video = read_video(str(driving), (128, 128, 3))[None]
+    source_image = read_video(str(source), (128, 128, 3))[None, :1]
+    frames = driving_video.shape[1]
     gif = work_dir / "demo.gif"
-    counted("demo", _route_launches(mconfig, 1, 2),
-            lambda: run_demo(mconfig, demo_ckpt, str(driving),
-                             str(REPO / "data" / "demo" / "source.png"), str(gif),
-                             (128, 128), device=device))
+    card = counted("demo", _route_launches(mconfig, 1, 2),
+                   lambda: run_demo(mconfig, demo_ckpt, str(driving), str(source), str(gif),
+                                    (128, 128), device=device))
     with Image.open(gif) as im:
         if im.n_frames != frames or im.size != (128, 128):
             raise AssertionError(f"demo: gif of {im.n_frames} frames at {im.size}, "
                                  f"want {frames} at 128^2")
+    generator, kp_detector = load_eval_models(mconfig, demo_ckpt, device="cpu")
+    extract_kp = KPExtractor(kp_detector, device="cpu")
+    cpu = to_numpy(Animator(generator, device="cpu")(source_image, card["kp_norm"],
+                                                     card["kp_source"]))
+    cpu.update(kp_driving=extract_kp(driving_video), kp_source=extract_kp(source_image))
+    del generator, kp_detector
     result["demo_frames"] = frames
+    result["demo_parity"] = {"max_abs_err": parity_errors(card, cpu, "eval parity demo"),
+                             "tol": PARITY_OUT_TOL}
 
     result["eval_launches"] = {name: sum(launches[name] for launches in
                                          result["launches"].values())
@@ -1770,6 +1868,7 @@ def main() -> int:
     warp_edge_phase("cuda")
     combine_backward_phase("cuda")
     loop_kernel_phase("cuda")
+    eval_kernel_phase("cuda")
     slice_parity(config)
     train_parity(config)
     train_parity(load_config(str(REPO / "configs" / "shapes.yaml")), "shapes")

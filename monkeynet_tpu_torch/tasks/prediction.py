@@ -176,16 +176,12 @@ def predict_keypoints(predictor, kp_init: Dict[str, np.ndarray], prediction_para
     return kp_video
 
 
-def prediction(config, log_dir, checkpoint, num_devices: int = 1, device="cuda",
-               seed: int = 0) -> Dict:
+def prediction(config, log_dir, checkpoint, device="cuda", seed: int = 0) -> Dict:
     """The three phases into `log_dir`/prediction; return {'losses', 'lrs',
     'videos'}: the predictor's loss and rate per epoch and the number of
     test videos rendered."""
     if checkpoint is None:
         raise ValueError("checkpoint is required for prediction mode")
-    if num_devices > 1:
-        raise NotImplementedError(
-            "frame-sharded eval is not ported yet (ROADMAP item 8); use num_devices=1")
     device = require_device(device)
     log_dir = os.path.join(log_dir, "prediction")
     png_dir = os.path.join(log_dir, "png")

@@ -48,7 +48,7 @@ def to_numpy(out: Dict) -> Dict:
     return {k: to_numpy(v) if isinstance(v, dict) else v.cpu().numpy() for k, v in out.items()}
 
 
-def reconstruction(config, log_dir, dataset, checkpoint, num_devices: int = 1, device="cuda",
+def reconstruction(config, log_dir, dataset, checkpoint, device="cuda",
                    aed_variables: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, float]:
     """Reconstruct the first `reconstruction_params.num_videos` + 1 videos of
     `dataset` (the reference's bound) into `log_dir`/reconstruction; return
@@ -56,9 +56,6 @@ def reconstruction(config, log_dir, dataset, checkpoint, num_devices: int = 1, d
     (tasks/metrics.py)."""
     if checkpoint is None:
         raise ValueError("checkpoint is required for reconstruction mode")
-    if num_devices > 1:
-        raise NotImplementedError(
-            "frame-sharded eval is not ported yet (ROADMAP item 8); use num_devices=1")
     device = require_device(device)
     log_dir = os.path.join(log_dir, "reconstruction")
     png_dir = os.path.join(log_dir, "png")

@@ -94,15 +94,11 @@ def transfer_one(animate: Animator, extract_kp: KPExtractor, source_image, drivi
     return out
 
 
-def transfer(config, log_dir, dataset, checkpoint, num_devices: int = 1,
-             device="cuda") -> int:
+def transfer(config, log_dir, dataset, checkpoint, device="cuda") -> int:
     """Animate `transfer_params.num_pairs` pairs of `dataset` into
     `log_dir`/transfer; return the number of pairs written."""
     if checkpoint is None:
         raise ValueError("checkpoint is required for transfer mode")
-    if num_devices > 1:
-        raise NotImplementedError(
-            "frame-sharded eval is not ported yet (ROADMAP item 8); use num_devices=1")
     device = require_device(device)
     log_dir = os.path.join(log_dir, "transfer")
     png_dir = os.path.join(log_dir, "png")

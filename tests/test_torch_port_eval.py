@@ -43,6 +43,7 @@ from monkeynet_tpu_torch.data.dataset import PairedDataset as TPairedDataset
 from monkeynet_tpu_torch.data.io import write_stacked_png
 from monkeynet_tpu_torch.tasks import animate as tanimate
 from monkeynet_tpu_torch.tasks import metrics as tmetrics
+from monkeynet_tpu_torch.tasks import prediction as tpred
 from monkeynet_tpu_torch.tasks import reconstruction as trecon
 from monkeynet_tpu_torch.tasks import transfer as ttransfer
 from monkeynet_tpu_torch.utils.checkpoint import save_checkpoint
@@ -407,15 +408,22 @@ def test_load_eval_models_reads_both_checkpoint_forms(shared, tmp_path):
 
 
 def test_eval_drivers_refuse_missing_checkpoint_cuda_and_devices(shared, tmp_path, monkeypatch):
+    """Each eval driver refuses a missing checkpoint, and without a card
+    refuses its default device rather than falling back to the CPU."""
     config, dataset = shared["config"], shared["port_test"]
-    for fn in (trecon.reconstruction, ttransfer.transfer):
-        with pytest.raises(ValueError, match="checkpoint is required"):
-            fn(config, str(tmp_path), dataset, None, device="cpu")
-        with pytest.raises(NotImplementedError, match="ROADMAP item 8"):
-            fn(config, str(tmp_path), dataset, shared["ckpt"], num_devices=2, device="cpu")
+    drivers = {"reconstruction": lambda ckpt, **kw: trecon.reconstruction(
+                   config, str(tmp_path), dataset, ckpt, **kw),
+               "transfer": lambda ckpt, **kw: ttransfer.transfer(
+                   config, str(tmp_path), dataset, ckpt, **kw),
+               "prediction": lambda ckpt, **kw: tpred.prediction(
+                   config, str(tmp_path), ckpt, **kw)}
+    for mode, run in drivers.items():
+        with pytest.raises(ValueError, match=f"checkpoint is required for {mode} mode"):
+            run(None, device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
-    with pytest.raises(RuntimeError, match="CUDA is not available"):
-        trecon.reconstruction(config, str(tmp_path), dataset, shared["ckpt"])
+    for run in drivers.values():
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            run(shared["ckpt"])
 
 
 # ---- the CLI and the demo ----------------------------------------------------
