@@ -34,16 +34,22 @@ Phases, each of which raises on failure:
      count the path implies: TransferEngine on configs/taichi.yaml's model
      at 64^2, 256 driving frames in chunks of 128, in bf16 and in f32; and
      Trainer on the same config at batch 32 with Adam, 3 warm-up steps and
-     10 timed ones, in bf16 (the config's setting) and in f32;
+     10 timed ones, in bf16 (the config's setting) and in f32, and the
+     same 10 steps as replays of the step's CUDA graph (Trainer.run);
   5. the train loop (train_loop_phase): train() on configs/shapes.yaml over
      the first 512 train videos of data/shapes, full width, batch 16, 2
-     epochs of 32 steps, with its kernel launches (6 warp, 5 d_src, 6
-     d_grid, 1 combine a step), log rows, train-vis gifs and epoch
-     checkpoints checked; a resume from the epoch-0 checkpoint, restored bit
-     for bit, that trains epoch 0 again; the loop's steps over its wall
-     time beside a window of Trainer.step alone (log.txt's steps/s per
-     window as a breakdown), its wait on the loader, the reader that
-     decoded, peak memory and the first and last reconstruction loss;
+     epochs of 32 steps, on the path the config asks for (the device feed,
+     k = 32 steps a dispatch through the step's CUDA graph), with its
+     kernel launches (6 warp, 5 d_src, 6 d_grid, 1 combine a step) checked
+     as captured launches x replays and by the profiler's count of one
+     replay, log rows, train-vis gifs and epoch checkpoints checked; a
+     resume from the epoch-0 checkpoint, restored bit for bit, that trains
+     epoch 0 again; the same cut on the eager host feed (device_feed false,
+     steps_per_dispatch 1), its launches counted step by step; the loops'
+     steps over their wall time beside the step alone, eager and graphed
+     (log.txt's steps/s per window as a breakdown), the wait on the
+     feeder, the cache, the reader that decoded, peak memory and the first
+     and last reconstruction loss;
   6. the eval paths (eval_phase) on phase 5's last checkpoint, each step with
      its launches counted and checked against its route's and its wall time
      printed beside the card: reconstruction() over the first 4 test videos
@@ -56,12 +62,29 @@ Phases, each of which raises on failure:
      GRU at 1024 features, 20 epochs over 16 train videos, 4 test videos
      rolled out (the loss falls, the gifs are written); the demo on
      configs/moving-gif.yaml at 128^2, full width, random weights, over
-     data/demo.
+     data/demo;
+  7. the device feed, k steps a dispatch and remat (dispatch_phase): (a)
+     configs/actions.yaml's augmentation over a batch of 32 items of
+     data/actions on the card against the CPU and the host pipeline (the
+     gathers to 1.2e-7, rotation and jitter to 5e-5; where it rotates, the
+     host pipeline with scipy's exact rotation in place of cv2's
+     fixed-point one); (b) the step's CUDA graph against eager steps at
+     actions width, bf16 and f32, 4 device-fed steps from one state, and a
+     rate milestone inside the chunk; (c) train() on configs/actions.yaml as
+     shipped, cut to 90 epochs (3 dispatches of k = 30), with the device
+     feed, launches by capture x replays and by the profiler, rows, gif,
+     checkpoints, the exit checkpoint reloaded into an eager Trainer, the
+     graphed and eager step alone, one chunk's busy share, the cache and
+     peak memory; (d) remat on configs/shapes-256.yaml as shipped over the
+     first 64 videos of data/shapes256: a step with and without, peak
+     memory and time, and a graphed remat step.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, where CUDA is missing or where the
-repository is not beside it. It imports nothing of JAX.
+repository is not beside it. It imports nothing of JAX. `--only PHASE ...`
+(kernels, parity, main, loop, dispatch) runs only those phases after the
+build and prints no result line.
 """
 
 from __future__ import annotations
@@ -1333,6 +1356,21 @@ def train_path(config, compute_dtype, device="cuda") -> dict:
             raise AssertionError(f"{name}: parameters did not move")
     ordered = sorted(times)
     median = 0.5 * (ordered[len(ordered) // 2 - 1] + ordered[len(ordered) // 2])
+    del trainer, out
+    # The same steps through the step's CUDA graph: the eager window above
+    # one step at a time, here TRAIN_TIMED_STEPS replays back to back, one sync.
+    trainer = Trainer(build_train_models(config, device=device, seed=SEED), train_params,
+                      device=device, steps_per_epoch=100)
+    chunk = {k: torch.stack([b[k] for b in batches]) for k in ("source", "video")}
+    trainer.run(chunk, 0, TRAIN_WARMUP_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    graph_metrics, _ = trainer.run(chunk, TRAIN_WARMUP_STEPS, n_steps)
+    torch.cuda.synchronize()
+    graph_s = time.perf_counter() - t0
+    if not torch.isfinite(graph_metrics).all():
+        raise AssertionError(f"non-finite graphed train metrics: {graph_metrics.tolist()}")
+    del trainer
     result = {
         "phase": "train_path", "compute_dtype": compute_dtype or "float32",
         "batch": TRAIN_BATCH, "steps": TRAIN_TIMED_STEPS, "warmup_steps": TRAIN_WARMUP_STEPS,
@@ -1342,8 +1380,12 @@ def train_path(config, compute_dtype, device="cuda") -> dict:
         "step_s": times, "steps_per_s_median": 1.0 / median,
         "steps_per_s_best": 1.0 / ordered[0], "steps_per_s_worst": 1.0 / ordered[-1],
         "sum_abs_param_change": moved, "peak_mem_gb": peak / 1e9,
+        "graph_window_s": graph_s, "graph_steps_per_s": TRAIN_TIMED_STEPS / graph_s,
     }
     log(result)
+    log(f"train_path {result['compute_dtype']}: graph {result['graph_steps_per_s']:.3f} steps/s "
+        f"({TRAIN_TIMED_STEPS} replays, one sync) against eager median "
+        f"{result['steps_per_s_median']:.3f} (synchronised steps)")
     return result
 
 
@@ -1355,8 +1397,12 @@ def train_path(config, compute_dtype, device="cuda") -> dict:
 LOOP_VIDEOS = 512
 LOOP_EPOCHS = 2
 LOOP_LOG_FREQ = 8
-LOOP_STEP_TIMED = 32  # Trainer.step alone, one window after TRAIN_WARMUP_STEPS
+LOOP_STEP_TIMED = 32  # a step alone, one window after TRAIN_WARMUP_STEPS
 LOG_ROW = re.compile(r"^(\d+)\) (.*); steps/s - (\S+)$")
+# The csrc kernels of the train step, by the names a profiler trace gives
+# them (templated names carry these as prefixes).
+TRACE_KERNELS = {"warp": "warp_fwd_kernel", "warp_dsrc": "warp_dsrc_kernel",
+                 "warp_dgrid": "warp_dgrid_kernel", "combine": "combine_kernel"}
 
 
 def _log_rows(log_dir) -> list:
@@ -1394,14 +1440,159 @@ def _same_state(a, b, where: str) -> int:
     return 0
 
 
+def _step_launches(config) -> dict:
+    """Kernel launches of one train step of `config`: TRAIN_STEP_LAUNCHES,
+    plus one warp where its augmentation rotates on the card (the device
+    feed warps the batch's frames once)."""
+    rotates = bool(config["train_params"].get("device_feed")) and \
+        "rotation_param" in config["dataset_params"].get("augmentation_params", {})
+    return dict(TRAIN_STEP_LAUNCHES, warp=TRAIN_STEP_LAUNCHES["warp"] + rotates)
+
+
+def _graph_launches(label: str, trainer, counted: dict, per_step: dict, steps: int) -> dict:
+    """The launches of a run that replayed the trainer's CUDA graph. The
+    wrappers' counters see each captured launch once, at the capture, and
+    the eager warm-up steps before it; so the capture must hold one step's
+    launches, the counters that and the warm-up's, and the run's launches
+    are the captured ones times the replays."""
+    stats = trainer.graph_stats
+    captured = stats["captured"]
+    if captured != per_step:
+        raise AssertionError(f"{label}: the capture recorded {captured}, one step is {per_step}")
+    if stats["replays"] != steps:
+        raise AssertionError(f"{label}: {stats['replays']} replays for {steps} steps")
+    want = {k: v * (stats["warmup_steps"] + 1) for k, v in per_step.items()}
+    if counted != want:
+        raise AssertionError(f"{label}: counters read {counted}, warm-up and capture give {want}")
+    return {k: v * stats["replays"] for k, v in captured.items()}
+
+
+def _profiled(fn, trace_path: Path) -> dict:
+    """fn() once under torch.profiler, synchronised: the csrc kernels'
+    launches counted by name in the device trace (TRACE_KERNELS), every
+    kernel's count, the device's busy time (the union of the kernels'
+    intervals) and the span from the first kernel's start to the last one's
+    end, in microseconds, and the host wall."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    prof.export_chrome_trace(str(trace_path))
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    trace_path.unlink()
+    if not events:
+        raise AssertionError("profiler: the trace holds no device kernels")
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events)
+    busy, reach = 0.0, spans[0][0]
+    for a, b in spans:
+        if b > reach:
+            busy += b - max(a, reach)
+            reach = b
+    return {"launches": {name: sum(prefix in e["name"] for e in events)
+                         for name, prefix in TRACE_KERNELS.items()},
+            "kernels": len(events), "busy_us": busy, "span_us": spans[-1][1] - spans[0][0],
+            "wall_us": wall_s * 1e6}
+
+
+def _replay_counts(label: str, trainer, per_step: dict, work_dir: Path) -> dict:
+    """One replay of the trainer's graph under the profiler: its kernels,
+    counted by name, are one step's (TRACE_KERNELS' four)."""
+    traced = _profiled(trainer.graph.replay, work_dir / "replay_trace.json")
+    want = {k: per_step[k] for k in TRACE_KERNELS}
+    if traced["launches"] != want:
+        raise AssertionError(f"{label}: the profiler counts {traced['launches']} in one "
+                             f"replay, the capture {want}")
+    return traced
+
+
+def _device_feed_of(dataset, image_shape, device="cuda"):
+    """(execute, cache on the card, lengths): the device feed of `dataset`,
+    as train() builds it."""
+    import torch
+
+    from monkeynet_tpu_torch.data.device_feed import build_video_cache, make_device_augment
+
+    videos, lengths = build_video_cache(dataset)
+    return (make_device_augment(dataset.transform, image_shape),
+            torch.from_numpy(videos).to(device), lengths)
+
+
+def _plan_chunk(dataset, lengths, batch_size: int, steps: int, device="cuda") -> dict:
+    """`steps` plan batches of the loader's order from epoch 0 on, stacked
+    into a chunk on the card."""
+    import numpy as np
+    import torch
+
+    from monkeynet_tpu_torch.data.device_feed import plan_stream
+
+    plans = []
+    per_epoch = len(dataset) // batch_size
+    for _, plan in plan_stream(dataset, dataset.transform, lengths, batch_size, SEED, 0,
+                               -(-steps // per_epoch)):
+        plans.append(plan)
+        if len(plans) == steps:
+            break
+    return {k: torch.from_numpy(np.stack([p[k] for p in plans])).to(device) for k in plans[0]}
+
+
+def _steps_alone(config, dataset, image_shape, steps: int, device="cuda") -> dict:
+    """The train step alone at `config` on device-fed batches: `steps`
+    eager `Trainer.step`s back to back, then `steps` graph replays
+    (`Trainer.run`), each window after TRAIN_WARMUP_STEPS and ended by one
+    synchronise."""
+    import torch
+
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import Trainer
+
+    tp = config["train_params"]
+    execute, cache, lengths = _device_feed_of(dataset, image_shape, device)
+    chunk = _plan_chunk(dataset, lengths, tp["batch_size"], TRAIN_WARMUP_STEPS + steps, device)
+
+    def augment(plan):
+        return execute(cache, plan)
+
+    out = {"steps": steps}
+    for label in ("eager", "graph"):
+        trainer = Trainer(build_train_models(config, device=device, seed=SEED), tp,
+                          device=device, steps_per_epoch=100)
+        if label == "eager":
+            def window(a, b):
+                for j in range(a, b):
+                    with torch.no_grad():
+                        batch = augment({k: v[j] for k, v in chunk.items()})
+                    trainer.step(batch)
+        else:
+            def window(a, b):
+                trainer.run(chunk, a, b, augment=augment)
+        window(0, TRAIN_WARMUP_STEPS)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        window(TRAIN_WARMUP_STEPS, TRAIN_WARMUP_STEPS + steps)
+        torch.cuda.synchronize()
+        out[f"{label}_s"] = time.perf_counter() - t0
+        out[f"{label}_steps_per_s"] = steps / out[f"{label}_s"]
+        del trainer
+    return out
+
+
 def train_loop_phase(work_dir: Path, device="cuda") -> dict:
     """train() on configs/shapes.yaml over data/shapes at full width and
-    batch 16 (cut as LOOP_* say), with the kernels' launches counted over the
-    loop's steps; its log rows, gifs and checkpoints; a resume from the
-    epoch-0 checkpoint that restores the state bit for bit and trains epoch 0
-    again; and Trainer.step alone at the same config and batch. Writes under
-    `work_dir`; the result's `checkpoint` is the last epoch's, for
-    eval_phase."""
+    batch 16 (cut as LOOP_* say), on the path the config asks for: the
+    device feed, k = 32 steps a dispatch through the step's CUDA graph. Its
+    launches (capture x replays, and the profiler's count of one replay);
+    its log rows, gifs and checkpoints; a resume from the epoch-0 checkpoint
+    that restores the state bit for bit and trains epoch 0 again. Then the
+    same cut on the eager host feed (device_feed false, steps_per_dispatch
+    1: the path a user gets on the CPU), with its launches counted step by
+    step; and the step alone, eager and graphed. Writes under `work_dir`;
+    the result's `checkpoint` is the last epoch's, for eval_phase."""
     import copy
 
     import torch
@@ -1409,7 +1600,7 @@ def train_loop_phase(work_dir: Path, device="cuda") -> dict:
     from monkeynet_tpu_torch.data.dataset import FramesDataset
     from monkeynet_tpu_torch.data.io import decode_video
     from monkeynet_tpu_torch.tasks.build import build_train_models
-    from monkeynet_tpu_torch.tasks.train import Trainer, metric_names
+    from monkeynet_tpu_torch.tasks.train import Trainer, largest_divisor_leq, metric_names
     from monkeynet_tpu_torch.tasks.train_loop import train
     from monkeynet_tpu_torch.utils.checkpoint import checkpoint_name, load_checkpoint
     from monkeynet_tpu_torch.utils.config import load_config
@@ -1419,32 +1610,37 @@ def train_loop_phase(work_dir: Path, device="cuda") -> dict:
     tp = config["train_params"]
     tp.update(num_epochs=LOOP_EPOCHS,
               log_params={"log_freq_iter": LOOP_LOG_FREQ, "cpk_freq_epoch": 1})
+    if not tp.get("device_feed"):
+        raise AssertionError("configs/shapes.yaml no longer asks for the device feed")
     dataset = FramesDataset(is_train=True, **config["dataset_params"])
     dataset.images = dataset.images[:LOOP_VIDEOS]
-    _, reader = decode_video(str(Path(dataset.root_dir) / dataset.images[0]),
-                             dataset.image_shape)
+    image_shape = dataset.image_shape
+    _, reader = decode_video(str(Path(dataset.root_dir) / dataset.images[0]), image_shape)
     steps_per_epoch = LOOP_VIDEOS // tp["batch_size"]
+    steps = LOOP_EPOCHS * steps_per_epoch
+    k = largest_divisor_leq(steps, 32)
     names = metric_names(tp)
     rec_names = [n for n in names if n.endswith("_rec")]
+    per_step = _step_launches(config)
 
-    log_dir, resume_dir = work_dir / "run", work_dir / "resume"
-    log_dir.mkdir()
-    resume_dir.mkdir()
+    log_dir, resume_dir, eager_dir = work_dir / "run", work_dir / "resume", work_dir / "eager"
+    for d in (log_dir, resume_dir, eager_dir):
+        d.mkdir()
     counters = _counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     for fn in counters.values():
         fn.launches = 0
     run = train(config, str(log_dir), dataset, seed=SEED, device=device)
-    launches = {name: fn.launches for name, fn in counters.items()}
+    counted = {name: fn.launches for name, fn in counters.items()}
     peak = torch.cuda.max_memory_allocated()
 
-    steps = LOOP_EPOCHS * steps_per_epoch
     if run.steps != steps or run.epochs != list(range(LOOP_EPOCHS)):
         raise AssertionError(f"train loop: {run.steps} steps over epochs {run.epochs}")
-    want = {k: v * steps for k, v in TRAIN_STEP_LAUNCHES.items()}
-    if launches != want:
-        raise AssertionError(f"train loop launch counts {launches} != expected {want}")
+    if not run.device_feed or run.steps_per_dispatch != k:
+        raise AssertionError(f"train loop: device feed {run.device_feed}, "
+                             f"{run.steps_per_dispatch} steps a dispatch (want {k})")
+    launches = _graph_launches("train loop", run.trainer, counted, per_step, steps)
     rows = _log_rows(log_dir)
     if [it for it, _, _ in rows] != list(range(0, steps, LOOP_LOG_FREQ)):
         raise AssertionError(f"train loop: log rows at {[it for it, _, _ in rows]}")
@@ -1462,6 +1658,9 @@ def train_loop_phase(work_dir: Path, device="cuda") -> dict:
     tensors = _same_state(load_checkpoint(str(cpks[-1])),
                           {**run.trainer.state_dict(), "epoch": LOOP_EPOCHS - 1,
                            "it": steps - 1}, "final state")
+    # One more replay of the loop's graph, under the profiler (after the
+    # state checks: it takes a step).
+    traced = _replay_counts("train loop", run.trainer, per_step, work_dir)
     # A fresh trainer restores the epoch-0 checkpoint bit for bit.
     saved = load_checkpoint(str(cpks[0]))
     trainer = Trainer(build_train_models(config, device=device, seed=SEED + 1), tp,
@@ -1480,7 +1679,7 @@ def train_loop_phase(work_dir: Path, device="cuda") -> dict:
     resumed = train(resume_config, str(resume_dir), dataset, checkpoint=str(cpks[0]),
                     seed=SEED, device=device)
     resumed_rows = _log_rows(resume_dir)
-    if resumed.epochs != [0] or resumed.steps != steps_per_epoch:
+    if resumed.epochs != [0] or resumed.steps != steps_per_epoch or not resumed.device_feed:
         raise AssertionError(f"resume: trained epochs {resumed.epochs}, {resumed.steps} steps")
     # The resumed run counts on from the checkpoint's `it`.
     want_its = [i for i in range(saved["it"], saved["it"] + steps_per_epoch)
@@ -1489,40 +1688,44 @@ def train_loop_phase(work_dir: Path, device="cuda") -> dict:
             math.isfinite(v) for _, values, _ in resumed_rows for v in values.values()):
         raise AssertionError(f"resume: log rows {resumed_rows}")
     wall_s, wait_s = run.wall_s, run.loader_wait_s
+    cache_bytes, cache_s = run.cache_bytes, run.cache_s
     del run, resumed
 
-    # Trainer.step alone: same config and batch, float batches on the card.
-    trainer = Trainer(build_train_models(config, device=device, seed=SEED), tp,
-                      device=device, steps_per_epoch=steps_per_epoch)
-    gen = torch.Generator(device=device).manual_seed(SEED + 6)
-    batches = [{k: torch.rand(tp["batch_size"], 1, HW, HW, 3, device=device, generator=gen)
-                for k in ("source", "video")}
-               for _ in range(TRAIN_WARMUP_STEPS + LOOP_STEP_TIMED)]
-    for batch in batches[:TRAIN_WARMUP_STEPS]:
-        trainer.step(batch)
-    torch.cuda.synchronize()
-    # one window, as the loop is timed: the steps back to back, one sync
-    t0 = time.perf_counter()
-    for batch in batches[TRAIN_WARMUP_STEPS:]:
-        trainer.step(batch)
-    torch.cuda.synchronize()
-    alone_s = time.perf_counter() - t0
-    del trainer, batches
+    # The same cut on the eager host feed, its launches counted step by step.
+    eager_config = copy.deepcopy(config)
+    eager_config["train_params"].update(device_feed=False, steps_per_dispatch=1)
+    for fn in counters.values():
+        fn.launches = 0
+    eager = train(eager_config, str(eager_dir), dataset, seed=SEED, device=device)
+    eager_launches = {name: fn.launches for name, fn in counters.items()}
+    want_eager = {n: v * steps for n, v in TRAIN_STEP_LAUNCHES.items()}
+    if eager.device_feed or eager.steps_per_dispatch != 1 or eager.steps != steps:
+        raise AssertionError(f"eager loop: {eager}")
+    if eager_launches != want_eager or eager.trainer.graph is not None:
+        raise AssertionError(f"eager loop launch counts {eager_launches} != {want_eager}")
+    eager_rows = _log_rows(eager_dir)
+    if [it for it, _, _ in eager_rows] != [it for it, _, _ in rows]:
+        raise AssertionError(f"eager loop: log rows {eager_rows}")
+    eager_wall, eager_wait = eager.wall_s, eager.loader_wait_s
+    del eager
 
+    alone = _steps_alone(config, dataset, image_shape, LOOP_STEP_TIMED, device)
     loop_sps = [sps for _, _, sps in rows]
     result = {
         "phase": "train_loop", "config": "configs/shapes.yaml", "videos": LOOP_VIDEOS,
         "checkpoint": str(cpks[-1]),
         "batch": tp["batch_size"], "epochs": LOOP_EPOCHS, "steps": steps,
-        "reader": reader, "launches": launches, "expected_launches": want,
+        "steps_per_dispatch": k, "reader": reader, "launches": launches,
+        "counted": counted, "expected_per_step": per_step, "replay_trace": traced,
         # the loop's rate: its steps over its wall time, first batch to the
-        # last step's end (the cold first step, gifs and checkpoint writes
+        # last step's end (the capture, gifs and checkpoint writes
         # included); log.txt's windows of LOOP_LOG_FREQ steps only break it down
         "loop_wall_s": wall_s, "loop_steps_per_s": steps / wall_s,
         "loop_steps_per_s_logged": loop_sps,
-        "loader_wait_s": wait_s,
-        "step_alone_steps": LOOP_STEP_TIMED, "step_alone_s": alone_s,
-        "step_alone_steps_per_s": LOOP_STEP_TIMED / alone_s,
+        "loader_wait_s": wait_s, "cache_bytes": cache_bytes, "cache_s": cache_s,
+        "eager_host_feed_wall_s": eager_wall, "eager_host_feed_steps_per_s": steps / eager_wall,
+        "eager_host_feed_loader_wait_s": eager_wait, "eager_host_feed_launches": eager_launches,
+        "step_alone": alone,
         "rec_first": sum(rows[0][1][n] for n in rec_names),
         "rec_last": sum(rows[-1][1][n] for n in rec_names),
         "rec_names": rec_names, "checkpoint_tensors_checked": tensors,
@@ -1532,11 +1735,18 @@ def train_loop_phase(work_dir: Path, device="cuda") -> dict:
         "peak_mem_gb": peak / 1e9,
     }
     log(result)
-    log(f"train_loop: {result['loop_steps_per_s']:.3f} steps/s ({steps} steps over the "
-        f"loop's wall time) against {result['step_alone_steps_per_s']:.3f} for Trainer.step "
-        f"alone ({LOOP_STEP_TIMED} warm steps back to back); log.txt windows: "
+    log(f"train_loop: {result['loop_steps_per_s']:.3f} steps/s ({steps} steps over the loop's "
+        f"wall time; device feed, graph, k = {k}) against "
+        f"{result['eager_host_feed_steps_per_s']:.3f} on the eager host feed; the step alone "
+        f"({LOOP_STEP_TIMED} warm steps back to back): graph {alone['graph_steps_per_s']:.3f}, "
+        f"eager {alone['eager_steps_per_s']:.3f}; log.txt windows: "
         + ", ".join(f"{sps:.3f}" for sps in loop_sps))
-    log(f"train_loop: waited {wait_s:.3f} s on the loader in {wall_s:.3f} s of loop")
+    log(f"train_loop: waited {wait_s:.3f} s on the feeder in {wall_s:.3f} s of loop "
+        f"({eager_wait:.3f} s in {eager_wall:.3f} s on the host feed); cache "
+        f"{cache_bytes} bytes built in {cache_s:.3f} s")
+    log(f"train_loop: launches {launches} (capture x replays; one replay's trace "
+        f"{traced['launches']}, the device busy {traced['busy_us']:.1f} of "
+        f"{traced['span_us']:.1f} us)")
     log(f"train_loop: videos decoded by the {reader} reader")
     log(f"train_loop: peak device memory {result['peak_mem_gb']:.3f} GB")
     log(f"train_loop: reconstruction loss {result['rec_first']:.5f} at iteration 0, "
@@ -1777,13 +1987,509 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
     return result
 
 
+# ---- phase 7: the device feed, k steps a dispatch, remat ----------------------
+
+# (a) The device feed's batch on the card against the CPU and the host
+# pipeline: the integer gathers to one f32 ulp at 1 (the division by 255),
+# the rotation and the jitter to tests/test_device_feed.py's host-against-
+# device limit.
+AUG_GATHER_TOL = 1.2e-7
+AUG_FLOAT_TOL = 5e-5
+AUG_BATCH = 32
+# (b) The graph against eager steps: the first step's metrics, and after
+# DISPATCH_K steps the graph's distance from an eager run against the spread
+# of two eager runs (d_src sums in the order of its atomics, so two eager
+# runs differ) times DISPATCH_SPREAD.
+DISPATCH_K = 4
+FIRST_STEP_REL_TOL = 1e-5
+DISPATCH_SPREAD = 2.0
+# A rate milestone after this many steps, inside the chunk.
+MILESTONE_STEP = 2
+# (c) configs/actions.yaml as shipped, cut only in epochs: 3 dispatches of 30.
+ACTIONS_EPOCHS = 90
+# (d) configs/shapes-256.yaml as shipped, over the first REMAT_VIDEOS train
+# videos of data/shapes256; REMAT_TIMED warm steps timed after the compared one.
+REMAT_VIDEOS = 64
+REMAT_TIMED = 3
+
+
+def _actions(device="cuda"):
+    """(config, train dataset, image shape) of configs/actions.yaml over
+    data/actions."""
+    from monkeynet_tpu_torch.data.dataset import FramesDataset
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    config = load_config(str(REPO / "configs" / "actions.yaml"))
+    config["dataset_params"]["root_dir"] = str(REPO / "data" / "actions")
+    dataset = FramesDataset(is_train=True, **config["dataset_params"])
+    return config, dataset, dataset.image_shape
+
+
+def _state_tensors(trainer) -> dict:
+    """Copies of a trainer's parameters and batch-norm running statistics."""
+    out = {}
+    for name, model in trainer.models.items():
+        for key, value in model.state_dict().items():
+            if value.is_floating_point():
+                out[f"{name}.{key}"] = value.detach().float().clone()
+    return out
+
+
+def _distance(a: dict, b: dict, buffers: bool) -> float:
+    """L2 distance over the parameters (buffers False) or the running
+    statistics (True) of two `_state_tensors`."""
+    total = 0.0
+    for key, value in a.items():
+        if ("running_" in key) == buffers:
+            total += (value - b[key]).double().pow(2).sum().item()
+    return math.sqrt(total)
+
+
+def _exact_rotation(transform):
+    """A copy of `transform` whose rotation takes RandomRotation's draw and
+    rotates with scipy's exact bilinear sample (float64 coordinates, zeros
+    outside: ndimage's 'grid-constant', which the host rotation is pinned
+    to in tests/test_data.py), in place of cv2's."""
+    import copy
+
+    import numpy as np
+    from scipy import ndimage
+
+    class ExactRotation(type(transform.rotation)):
+        def __call__(self, clip, rng=None):
+            theta = math.radians(rng.uniform(*self.degrees))
+            clip = np.asarray(clip, np.float32)
+            h, w = clip.shape[1:3]
+            cy, cx = (h - 1) / 2.0, (w - 1) / 2.0
+            c, s = math.cos(theta), math.sin(theta)
+            matrix = np.array([[c, s], [-s, c]])
+            offset = np.array([cy, cx]) - matrix @ np.array([cy, cx])
+            return np.stack([np.stack([
+                ndimage.affine_transform(frame[..., ch].astype(np.float64), matrix,
+                                         offset=offset, order=1, mode="grid-constant", cval=0.0)
+                for ch in range(clip.shape[-1])], axis=-1) for frame in clip]).astype(np.float32)
+
+    exact = copy.deepcopy(transform)
+    exact.rotation = ExactRotation(transform.rotation.degrees)
+    exact.transforms = [exact.rotation if t is transform.rotation else t
+                        for t in transform.transforms]
+    return exact
+
+
+def augment_phase(device="cuda") -> dict:
+    """(a) configs/actions.yaml's augmentation on the card against the CPU
+    and against the host pipeline, over one plan batch of AUG_BATCH items
+    of data/actions: the gathers (flips, resize, crop), the rotation, the
+    jitter, and the whole pipeline; and the whole pipeline's time on the
+    card. The host pipeline rotates with cv2, whose bilinear weights are
+    fixed-point: where it rotates, the card is held against the host
+    pipeline with scipy's exact rotation in cv2's place, and the gap to cv2
+    is printed beside cv2's version."""
+    import cv2
+    import numpy as np
+    import torch
+
+    from monkeynet_tpu_torch.data.augmentation import AllAugmentationTransform
+    from monkeynet_tpu_torch.data.device_feed import (
+        build_video_cache, collate_plans, make_device_augment)
+
+    config, dataset, image_shape = _actions(device)
+    h, w, _ = image_shape
+    videos, lengths = build_video_cache(dataset)
+    cache = {"cpu": torch.from_numpy(videos), "cuda": torch.from_numpy(videos).to(device)}
+    params = config["dataset_params"]["augmentation_params"]
+    cases = {
+        "gathers": ({k: params[k] for k in ("flip_param", "resize_param", "crop_param")},
+                    AUG_GATHER_TOL),
+        "rotation": ({"rotation_param": params["rotation_param"]}, AUG_FLOAT_TOL),
+        "jitter": ({"jitter_param": params["jitter_param"]}, AUG_FLOAT_TOL),
+        "pipeline": (params, AUG_FLOAT_TOL),
+    }
+    items = np.random.default_rng(SEED).permutation(len(dataset))[:AUG_BATCH]
+    keys = [(SEED, 0, 0, b) for b in range(AUG_BATCH)]
+    result = {"phase": "augment", "batch": AUG_BATCH, "shape": list(image_shape),
+              "cv2": cv2.__version__, "cases": {}}
+
+    def host_batch(transform):
+        host = [transform(videos[j, : lengths[j]], rng=np.random.default_rng(key))
+                for j, key in zip(items, keys)]
+        return {k: torch.from_numpy(np.stack([item[k] for item in host])).to(device)
+                for k in ("source", "video")}
+
+    for label, (case, tol) in cases.items():
+        transform = AllAugmentationTransform(**case)
+        plan = collate_plans(items, [transform.plan(int(lengths[j]), h, w,
+                                                    np.random.default_rng(key))
+                                     for j, key in zip(items, keys)])
+        execute = make_device_augment(transform, image_shape)
+        out = {dev: execute(cache[dev], {k: torch.from_numpy(v).to(dev) for k, v in plan.items()})
+               for dev in ("cpu", "cuda")}
+        card = out["cuda"]
+        host = host_batch(transform)
+        reference = host if transform.rotation is None else host_batch(_exact_rotation(transform))
+        errs = {k: max(max_err(card[key], ref[key]) for key in ("source", "video"))
+                for k, ref in (("cpu", {key: v.to(device) for key, v in out["cpu"].items()}),
+                               ("host", reference), ("host_cv2", host))}
+        check(f"augment {label}: card against the CPU", errs["cpu"], tol)
+        check(f"augment {label}: card against the host pipeline"
+              + ("" if transform.rotation is None else " with scipy's exact rotation"),
+              errs["host"], tol)
+        row = {"max_abs_err": errs, "tol": tol}
+        if label == "pipeline":
+            plan_dev = {k: torch.from_numpy(v).to(device) for k, v in plan.items()}
+            with torch.no_grad():
+                row["card_ms"] = time_ms(lambda: execute(cache["cuda"], plan_dev))
+        result["cases"][label] = row
+    log(result)
+    log("augment: card against the CPU / the host pipeline (exact rotation) / the host pipeline "
+        f"(cv2 {cv2.__version__}): " + "; ".join(
+            f"{label} {r['max_abs_err']['cpu']:.2e} / {r['max_abs_err']['host']:.2e} / "
+            f"{r['max_abs_err']['host_cv2']:.2e}" for label, r in result["cases"].items()))
+    return result
+
+
+def graph_against_eager(feed, base, dtype: str, milestone: bool = False,
+                        device="cuda") -> dict:
+    """(b) At configs/actions.yaml's width, DISPATCH_K device-fed steps from
+    one state and one list of plans: two eager runs (Trainer.step, capturable
+    Adam) and one graphed (Trainer.run). The graph's first-step metrics
+    against eager's, and its distance from an eager run after the chunk
+    against the two eager runs' spread. With `milestone`, a rate milestone
+    after MILESTONE_STEP steps: the host rate drops there, and so do the
+    graph's updates. `feed`: (config, executor, cache, a chunk of DISPATCH_K
+    plans) of configs/actions.yaml; `base`: the networks every run starts
+    from."""
+    import copy
+
+    import torch
+
+    from monkeynet_tpu_torch.tasks.train import Trainer
+
+    config, execute, cache, chunk = feed
+    tp = dict(config["train_params"], compute_dtype=dtype)
+    if milestone:
+        tp["epoch_milestones"] = [MILESTONE_STEP]
+
+    def augment(plan):
+        return execute(cache, plan)
+
+    def trainer():  # one step an epoch: the milestone falls at step MILESTONE_STEP
+        return Trainer(copy.deepcopy(base), tp, device=device, steps_per_epoch=1)
+
+    runs = {}
+    for label in ("eager_1", "eager_2", "graph"):
+        t = trainer()
+        before = _state_tensors(t)
+        metrics, updates, rates = [], [], []
+        for j in range(DISPATCH_K):
+            rates.append(t.optimizers["generator"].param_groups[0]["lr"])
+            if label == "graph":
+                m, _ = t.run(chunk, j, j + 1, augment=augment)
+                metrics.append(m[0])
+            else:
+                with torch.no_grad():
+                    batch = augment({k: v[j] for k, v in chunk.items()})
+                metrics.append(t.step(batch)["metrics"])
+            after = _state_tensors(t)
+            updates.append(_distance(after, before, buffers=False))
+            before = after
+        runs[label] = {"metrics": torch.stack(metrics).float(), "state": after,
+                       "updates": updates, "rates": rates}
+        if label == "graph" and t.graph_stats["replays"] != DISPATCH_K:
+            raise AssertionError(f"graph: {t.graph_stats}")
+        del t
+    e1, e2, g = runs["eager_1"], runs["eager_2"], runs["graph"]
+    first_rel = ((g["metrics"][0] - e1["metrics"][0]).abs()
+                 / e1["metrics"][0].abs().clamp_min(1e-12)).max().item()
+    check(f"graph {dtype}: first step's metrics (relative)", first_rel, FIRST_STEP_REL_TOL)
+    result = {"phase": "graph_against_eager", "dtype": dtype, "steps": DISPATCH_K,
+              "milestone": MILESTONE_STEP if milestone else None,
+              "first_step_metrics_rel": first_rel,
+              "graph_metrics": g["metrics"].tolist(), "eager_metrics": e1["metrics"].tolist()}
+    for kind, buffers in (("params", False), ("buffers", True)):
+        reading = _distance(g["state"], e1["state"], buffers)
+        spread = _distance(e2["state"], e1["state"], buffers)
+        result[f"{kind}_graph_to_eager"] = reading
+        result[f"{kind}_eager_spread"] = spread
+        if not reading <= DISPATCH_SPREAD * spread:
+            raise AssertionError(f"graph {dtype}: {kind} {reading} from eager, two eager runs "
+                                 f"{spread} apart (x{DISPATCH_SPREAD} allowed)")
+    result["graph_update_norms"] = g["updates"]
+    result["eager_update_norms"] = e1["updates"]
+    result["rates"] = g["rates"]
+    if milestone:
+        lr = config["train_params"]["lr"]
+        want_rates = [lr if j < MILESTONE_STEP else lr * 0.1 for j in range(DISPATCH_K)]
+        if any(abs(r - w) > 1e-12 for r, w in zip(g["rates"], want_rates)):
+            raise AssertionError(f"milestone: host rates {g['rates']}, want {want_rates}")
+        # Adam moves each parameter by about the rate: the update falls
+        # tenfold at the milestone, in the graph as in eager steps.
+        for label, run in (("graph", g), ("eager", e1)):
+            u = run["updates"]
+            drop, before = u[MILESTONE_STEP] / u[MILESTONE_STEP - 1], \
+                u[MILESTONE_STEP - 1] / u[MILESTONE_STEP - 2]
+            if not (drop < 0.3 and before > 0.5):
+                raise AssertionError(f"milestone, {label}: update norms {u}")
+    log(result)
+    log(f"graph against eager, {dtype or 'float32'}{', milestone' if milestone else ''}: "
+        f"parameters "
+        f"{result['params_graph_to_eager']:.4e} from eager (two eager runs "
+        f"{result['params_eager_spread']:.4e} apart), running statistics "
+        f"{result['buffers_graph_to_eager']:.4e} ({result['buffers_eager_spread']:.4e}); "
+        f"first step's metrics {first_rel:.2e} relative; update norms "
+        + ", ".join(f"{u:.3e}" for u in g["updates"]))
+    return result
+
+
+def actions_loop_phase(work_dir: Path, smi: str, device="cuda") -> dict:
+    """(c) train() on configs/actions.yaml over data/actions as shipped, cut
+    only to ACTIONS_EPOCHS epochs (3 dispatches of k = 30, 1 step an
+    epoch): the device feed ran, k = 30, the launches by capture x replays
+    and by the profiler, finite log rows at the recipe's cadence, the gif,
+    the epoch-0 checkpoint (due at cpk_freq_epoch 5000) and the exit
+    checkpoint, which reloads into an eager Trainer that then steps. The
+    loop's rate beside the graphed and the eager step alone, the cache, peak
+    memory and the first and last reconstruction loss. (A whole chunk's
+    busy share: scripts/profile_torch_port.py --path train_graph.)"""
+    import torch
+
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import Trainer, largest_divisor_leq, metric_names
+    from monkeynet_tpu_torch.tasks.train_loop import train
+    from monkeynet_tpu_torch.utils.checkpoint import checkpoint_name, load_checkpoint
+
+    config, dataset, image_shape = _actions(device)
+    tp = config["train_params"]
+    shipped = dict(tp)
+    tp["num_epochs"] = ACTIONS_EPOCHS
+    steps_per_epoch = len(dataset) // tp["batch_size"]
+    steps = ACTIONS_EPOCHS * steps_per_epoch
+    k = largest_divisor_leq(shipped["num_epochs"] * steps_per_epoch,
+                            shipped.get("steps_per_dispatch", 32))
+    names = metric_names(tp)
+    rec_names = [n for n in names if n.endswith("_rec")]
+    per_step = _step_launches(config)
+    log_dir = work_dir / "actions"
+    log_dir.mkdir()
+
+    counters = _counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for fn in counters.values():
+        fn.launches = 0
+    run = train(config, str(log_dir), dataset, seed=SEED, device=device)
+    counted = {name: fn.launches for name, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+
+    if not run.device_feed:
+        raise AssertionError("actions: the device feed did not run")
+    if run.steps_per_dispatch != k or k != 30 or run.steps != steps:
+        raise AssertionError(f"actions: k = {run.steps_per_dispatch} (want {k}), {run.steps} steps")
+    launches = _graph_launches("actions", run.trainer, counted, per_step, steps)
+    freq = tp["log_params"]["log_freq_iter"]
+    rows = _log_rows(log_dir)
+    if [it for it, _, _ in rows] != list(range(0, steps, freq)) or not rows:
+        raise AssertionError(f"actions: log rows at {[it for it, _, _ in rows]}")
+    for it, values, _ in rows:
+        if list(values) != names or not all(math.isfinite(v) for v in values.values()):
+            raise AssertionError(f"actions: bad log row {it}: {values}")
+    gifs = sorted(p.name for p in (log_dir / "train-vis").iterdir())
+    if gifs != [f"{it:08d}-rec.gif" for it, _, _ in rows]:
+        raise AssertionError(f"actions: train-vis holds {gifs}")
+    cpk_freq = tp["log_params"]["cpk_freq_epoch"]
+    due = [e for e in range(ACTIONS_EPOCHS) if e % cpk_freq == 0]
+    want_cpks = sorted({checkpoint_name(e) for e in due + [ACTIONS_EPOCHS - 1]})
+    cpks = sorted(p.name for p in log_dir.iterdir() if p.name.endswith("checkpoint.pth.tar"))
+    if cpks != want_cpks:
+        raise AssertionError(f"actions: checkpoints {cpks}, want {want_cpks}")
+    last = run.last_metrics.float().cpu()
+    if not torch.isfinite(last).all():
+        raise AssertionError(f"actions: last step's losses {last.tolist()}")
+    # The exit checkpoint reloads into an eager Trainer, which then steps.
+    saved = load_checkpoint(str(log_dir / checkpoint_name(ACTIONS_EPOCHS - 1)))
+    _same_state(saved, {**run.trainer.state_dict(), "epoch": ACTIONS_EPOCHS - 1,
+                        "it": steps - 1}, "actions exit checkpoint")
+    traced = _replay_counts("actions", run.trainer, per_step, work_dir)
+    eager = Trainer(build_train_models(config, device=device, seed=SEED + 1), tp,
+                    device=device, steps_per_epoch=steps_per_epoch)
+    eager.load_state_dict(saved)
+    reloaded = _same_state({**eager.state_dict(), "epoch": saved["epoch"], "it": saved["it"]},
+                           saved, "actions exit checkpoint, reloaded")
+    execute, cache, lengths = _device_feed_of(dataset, image_shape, device)
+    with torch.no_grad():
+        batch = execute(cache, {k: v[0] for k, v in
+                                _plan_chunk(dataset, lengths, tp["batch_size"], 1).items()})
+    eager_metrics = eager.step(batch)["metrics"].float().cpu()
+    if not torch.isfinite(eager_metrics).all():
+        raise AssertionError(f"actions: the reloaded eager step's losses {eager_metrics}")
+    del eager, cache, batch
+    wall_s, wait_s, cache_bytes, cache_s = run.wall_s, run.loader_wait_s, run.cache_bytes, \
+        run.cache_s
+    del run
+    alone = _steps_alone(config, dataset, image_shape, LOOP_STEP_TIMED, device)
+    result = {
+        "phase": "actions_loop", "config": "configs/actions.yaml", "epochs": ACTIONS_EPOCHS,
+        "steps": steps, "steps_per_dispatch": k, "batch": tp["batch_size"],
+        "compute_dtype": tp.get("compute_dtype"), "feed_dtype": tp.get("feed_dtype"),
+        "launches": launches, "counted": counted, "expected_per_step": per_step,
+        "replay_trace": traced,
+        "loop_wall_s": wall_s, "loop_steps_per_s": steps / wall_s,
+        "loop_steps_per_s_logged": [sps for _, _, sps in rows], "loader_wait_s": wait_s,
+        "cache_bytes": cache_bytes, "cache_s": cache_s, "step_alone": alone,
+        "rec_names": rec_names, "rec_first": sum(rows[0][1][n] for n in rec_names),
+        "rec_last": sum(last[names.index(n)].item() for n in rec_names),
+        "checkpoints": cpks, "reloaded_tensors": reloaded,
+        "reloaded_eager_step_metrics": eager_metrics.tolist(),
+        "peak_mem_gb": peak / 1e9, "device": smi,
+    }
+    log(result)
+    log(f"actions: {result['loop_steps_per_s']:.3f} steps/s ({steps} steps over the loop's wall "
+        f"time, device feed, graph, k = {k}); the step alone ({LOOP_STEP_TIMED} warm steps back "
+        f"to back): graph {alone['graph_steps_per_s']:.3f}, eager "
+        f"{alone['eager_steps_per_s']:.3f}; on {smi}")
+    log(f"actions: cache {cache_bytes} bytes built in {cache_s:.3f} s; waited {wait_s:.3f} s on "
+        f"the feeder; peak device memory {result['peak_mem_gb']:.3f} GB; one replay's device "
+        f"busy {traced['busy_us']:.1f} us of {traced['wall_us']:.1f} us wall")
+    log(f"actions: launches {launches} (capture x replays; one replay's trace "
+        f"{traced['launches']}); reconstruction loss {result['rec_first']:.5f} at step 0, "
+        f"{result['rec_last']:.5f} at step {steps - 1}")
+    return result
+
+
+def remat_phase(device="cuda") -> dict:
+    """(d) configs/shapes-256.yaml as shipped (batch 20, bf16, uint8 feed,
+    256^2, widths 32 / 1024, a 7-block generator), device-fed from the first
+    REMAT_VIDEOS train videos of data/shapes256: one step with remat and
+    two without, from one state and one batch. Remat agrees with the plain
+    step by (b)'s rule and leaves the running statistics as the plain step
+    does (updated once). Peak memory and step time of each (REMAT_TIMED warm
+    steps after the compared one), and a graphed remat step."""
+    import copy
+
+    import torch
+
+    from monkeynet_tpu_torch.data.dataset import FramesDataset
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import Trainer
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    config = load_config(str(REPO / "configs" / "shapes-256.yaml"))
+    config["dataset_params"]["root_dir"] = str(REPO / "data" / "shapes256")
+    tp = config["train_params"]
+    if not (tp.get("remat") and tp.get("device_feed")):
+        raise AssertionError("configs/shapes-256.yaml no longer sets remat and device_feed")
+    dataset = FramesDataset(is_train=True, **config["dataset_params"])
+    dataset.images = dataset.images[:REMAT_VIDEOS]
+    execute, cache, lengths = _device_feed_of(dataset, dataset.image_shape, device)
+    chunk = _plan_chunk(dataset, lengths, tp["batch_size"], 1 + REMAT_TIMED, device)
+
+    def augment(plan):
+        return execute(cache, plan)
+
+    with torch.no_grad():
+        batches = [augment({k: v[j] for k, v in chunk.items()}) for j in range(1 + REMAT_TIMED)]
+    base = build_train_models(config, device=device, seed=SEED)
+    runs = {}
+    for label, remat in (("remat", True), ("plain_1", False), ("plain_2", False)):
+        trainer = Trainer(copy.deepcopy(base), dict(tp, remat=remat), device=device,
+                          steps_per_epoch=100)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        resident = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        metrics = trainer.step(batches[0])["metrics"].float().cpu()
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t0
+        state = _state_tensors(trainer)
+        counts = {f"{name}.{k}": int(v) for name, model in trainer.models.items()
+                  for k, v in model.state_dict().items() if k.endswith("num_batches_tracked")}
+        times = []
+        if label != "plain_2":
+            for batch in batches[1:]:
+                t0 = time.perf_counter()
+                trainer.step(batch)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+        runs[label] = {"metrics": metrics, "state": state, "first_step_s": first_s,
+                       "warm_step_s": times, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                       "peak_above_resident_gb":
+                           (torch.cuda.max_memory_allocated() - resident) / 1e9,
+                       "bn_counts": sorted(set(counts.values()))}
+        del trainer
+    r, p1, p2 = runs["remat"], runs["plain_1"], runs["plain_2"]
+    if r["bn_counts"] != [1] or p1["bn_counts"] != [1]:
+        raise AssertionError(f"remat: running statistics updated {r['bn_counts']} times "
+                             f"(plain {p1['bn_counts']})")
+    result = {"phase": "remat", "config": "configs/shapes-256.yaml", "videos": REMAT_VIDEOS,
+              "batch": tp["batch_size"], "metrics_remat": r["metrics"].tolist(),
+              "metrics_plain": p1["metrics"].tolist()}
+    for kind, buffers in (("params", False), ("buffers", True)):
+        reading = _distance(r["state"], p1["state"], buffers)
+        spread = _distance(p2["state"], p1["state"], buffers)
+        result[f"{kind}_remat_to_plain"] = reading
+        result[f"{kind}_plain_spread"] = spread
+        limit = spread if buffers else DISPATCH_SPREAD * spread
+        if not reading <= limit:
+            raise AssertionError(f"remat: {kind} {reading} from the plain step, two plain steps "
+                                 f"{spread} apart")
+    for label in ("remat", "plain_1"):
+        result[label] = {k: v for k, v in runs[label].items() if k not in ("state", "metrics")}
+
+    # The remat step captured and replayed.
+    graphed = Trainer(copy.deepcopy(base), tp, device=device, steps_per_epoch=100)
+    graphed.run(chunk, 0, 1, augment=augment)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    g_metrics, _ = graphed.run(chunk, 1, 1 + REMAT_TIMED, augment=augment)
+    torch.cuda.synchronize()
+    result["graph_remat_step_s"] = (time.perf_counter() - t0) / REMAT_TIMED
+    if not torch.isfinite(g_metrics).all() or graphed.graph_stats["replays"] != 1 + REMAT_TIMED:
+        raise AssertionError(f"remat graph: {g_metrics.tolist()}, {graphed.graph_stats}")
+    del graphed, base
+    log(result)
+    log(f"remat at shapes-256: peak {r['peak_gb']:.3f} GB against {p1['peak_gb']:.3f} GB "
+        f"without ({r['peak_above_resident_gb']:.3f} / {p1['peak_above_resident_gb']:.3f} above "
+        f"the resident state); warm step {min(r['warm_step_s']):.4f} s against "
+        f"{min(p1['warm_step_s']):.4f} s; graphed remat step "
+        f"{result['graph_remat_step_s']:.4f} s; parameters {result['params_remat_to_plain']:.4e} "
+        f"from the plain step (two plain steps {result['params_plain_spread']:.4e} apart), "
+        f"running statistics {result['buffers_remat_to_plain']:.4e} "
+        f"({result['buffers_plain_spread']:.4e})")
+    return result
+
+
+def dispatch_phase(work_dir: Path, smi: str, device="cuda") -> dict:
+    """Phase 7: (a) augment_phase, (b) graph_against_eager in bf16 and f32
+    and across a milestone, (c) actions_loop_phase, (d) remat_phase."""
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+
+    result = {"augment": augment_phase(device)}
+    config, dataset, image_shape = _actions(device)
+    execute, cache, lengths = _device_feed_of(dataset, image_shape, device)
+    feed = (config, execute, cache,
+            _plan_chunk(dataset, lengths, config["train_params"]["batch_size"], DISPATCH_K,
+                        device))
+    base = build_train_models(config, device=device, seed=SEED)
+    result["graph"] = [graph_against_eager(feed, base, "bfloat16", device=device),
+                       graph_against_eager(feed, base, None, device=device),
+                       graph_against_eager(feed, base, "bfloat16", milestone=True,
+                                           device=device)]
+    del feed, base, cache
+    result["actions"] = actions_loop_phase(work_dir, smi, device)
+    result["remat"] = remat_phase(device)
+    return result
+
+
 def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
-                 loop_launches: dict, eval_launches: dict) -> dict:
+                 loop_launches: dict, eval_launches: dict, actions_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; every path's counts are also
     given under its own name (`train_loop_launches`: the train loop's 64
-    steps; `eval_launches`: the counted steps of eval_phase). Times are per transfer chunk (forward kernels)
+    steps through the step's CUDA graph, captured launches x replays;
+    `eval_launches`: the counted steps of eval_phase; `actions_launches`:
+    phase 7's loop on configs/actions.yaml, 90 steps through the graph).
+    Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
     shape, the second warp of the source frame that the path no longer
@@ -1814,7 +2520,8 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                "transfer_launches": transfer_launches[name],
                "train_launches": train_launches[name],
                "train_loop_launches": loop_launches[name],
-               "eval_launches": eval_launches[name]}
+               "eval_launches": eval_launches[name],
+               "actions_launches": actions_launches[name]}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
@@ -1840,9 +2547,19 @@ def full_f32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-def main() -> int:
+PHASES = ("kernels", "parity", "main", "loop", "dispatch")
+
+
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    parser = argparse.ArgumentParser(description="Smoke run of the PyTorch port on one GPU.")
+    parser.add_argument("--only", nargs="+", choices=PHASES, default=None,
+                        help="run only these phases (after the build; 'loop' includes the eval "
+                             "phase) and print no result line")
+    only = parser.parse_args(argv).only
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; nothing was run", file=sys.stderr)
         return 2
@@ -1863,24 +2580,57 @@ def main() -> int:
 
     config = load_config(str(REPO / "configs" / "taichi.yaml"))
     build_kernels()
+    if only is not None:
+        phases = {
+            "kernels": lambda work: (kernel_phase("cuda"), warp_train_phase("cuda"),
+                                     warp_edge_phase("cuda"), combine_backward_phase("cuda"),
+                                     loop_kernel_phase("cuda"), eval_kernel_phase("cuda")),
+            "parity": lambda work: (slice_parity(config), train_parity(config)),
+            "main": lambda work: (main_path(config, torch.bfloat16),
+                                  train_path(config, "bfloat16")),
+            "loop": lambda work: eval_phase(train_loop_phase(work)["checkpoint"], work, smi),
+            "dispatch": lambda work: dispatch_phase(work, smi),
+        }
+        for name in only:
+            with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
+                phases[name](Path(work))
+        log(f"chip_smoke: phases {only} passed on {smi}")
+        return 0
+    seconds, t0 = {}, time.perf_counter()
+
+    def lap(name):
+        nonlocal t0
+        seconds[name] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+
     summary = kernel_phase("cuda")
     summary.update(warp_train_phase("cuda"))
     warp_edge_phase("cuda")
     combine_backward_phase("cuda")
     loop_kernel_phase("cuda")
     eval_kernel_phase("cuda")
+    lap("kernels")
     slice_parity(config)
     train_parity(config)
     train_parity(load_config(str(REPO / "configs" / "shapes.yaml")), "shapes")
+    lap("parity")
     runs = [main_path(config, torch.bfloat16), main_path(config, torch.float32)]
     train_runs = [train_path(config, "bfloat16"), train_path(config, None)]
+    lap("main")
     with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
         loop = train_loop_phase(Path(work))
+        lap("loop")
         evals = eval_phase(loop["checkpoint"], Path(work), smi)
+        lap("eval")
+    with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
+        dispatch = dispatch_phase(Path(work), smi)
+    lap("dispatch")
+    log({"phase": "seconds", **seconds})
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
     print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
-                                  loop["launches"], evals["eval_launches"])), flush=True)
+                                  loop["launches"], evals["eval_launches"],
+                                  dispatch["actions"]["launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

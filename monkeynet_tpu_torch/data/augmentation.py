@@ -10,6 +10,8 @@ reference converts to CTHW torch layout — we feed NDHWC straight to device).
 
 Randomness comes from an explicit np.random.Generator so the pipeline is
 seedable per-worker (the reference leans on the global `random` module).
+`AllAugmentationTransform.plan` gives an item's draws as a plan instead,
+which the device feed carries out on the card (data/device_feed.py).
 """
 
 from __future__ import annotations
@@ -270,6 +272,104 @@ class VideoToTensor:
         return {"video": np.ascontiguousarray(_to_float(video))}
 
 
+# --------------------------------------------------------------------------
+# Plans for the device feed: each transform also expresses itself as a plan,
+# its random draws plus the gather indices they imply, instead of doing the
+# numpy work. A plan consumes the same rng calls in the same order as
+# __call__, so a planned item sees the host pipeline's frames, flips, angle,
+# crop and jitter; data/device_feed.py carries the plans out on the card.
+# Copies of the JAX package's plan functions.
+# --------------------------------------------------------------------------
+
+
+def plan_select(select: SelectRandomFrames, n: int, rng) -> np.ndarray:
+    """SelectRandomFrames.__call__'s draws; returns the frame indices."""
+    k = select.number_of_frames
+    if select.consequent:
+        first = rng.integers(0, max(1, n - k + 1))
+        return np.arange(first, first + k)
+    return np.sort(rng.choice(n, size=k, replace=True))
+
+
+def plan_flip(flip: RandomFlip, frame_idx: np.ndarray, rng):
+    """RandomFlip's draws: a time flip takes one draw and returns early, so
+    it skips the horizontal draw, as __call__ does."""
+    if flip.time_flip and rng.random() < 0.5:
+        return frame_idx[::-1], False
+    if flip.horizontal_flip and rng.random() < 0.5:
+        return frame_idx, True
+    return frame_idx, False
+
+
+def plan_rotation(rot: RandomRotation, rng) -> float:
+    return float(rng.uniform(*rot.degrees))
+
+
+def plan_resize_crop(resize, crop, h: int, w: int, rng):
+    """RandomResize (skimage's nearest rule) then RandomCrop (edge pad, then
+    a window) as per-axis gather indices into the image before the resize.
+
+    Both are integer gathers, so their composition is one. The resize ratio
+    must keep the Gaussian prefilter at radius 0 (int(4 * sigma + 0.5) == 0,
+    a scale above ~0.8), as `supports_device_feed` checks.
+    """
+    new_h, new_w = h, w
+    if resize is not None:
+        scale = rng.uniform(*resize.ratio)
+        new_h, new_w = int(h * scale), int(w * scale)
+        sig = max(0.0, (max(h / new_h, w / new_w) - 1) / 2)
+        if int(4.0 * sig + 0.5) > 0:
+            raise ValueError("device-feed plan requires prefilter-free resize ratios")
+        rows = np.clip(np.floor((np.arange(new_h) + 0.5) * (h / new_h)).astype(np.int64),
+                       0, h - 1)
+        cols = np.clip(np.floor((np.arange(new_w) + 0.5) * (w / new_w)).astype(np.int64),
+                       0, w - 1)
+    else:
+        rows = np.arange(h)
+        cols = np.arange(w)
+
+    if crop is None:
+        return rows, cols
+
+    ch, cw = crop.size
+    pad_h = max(0, ch - new_h)
+    pad_w = max(0, cw - new_w)
+    im_h, im_w = new_h + pad_h, new_w + pad_w
+    y = 0 if im_h == ch else int(rng.integers(0, im_h - ch + 1))
+    x = 0 if im_w == cw else int(rng.integers(0, im_w - cw + 1))
+    # Row p of the padded image is row clip(p - pad_top, 0, new - 1) of the
+    # resized one (edge mode); the window reads rows y .. y + ch - 1.
+    rr = np.clip(y + np.arange(ch) - pad_h // 2, 0, new_h - 1)
+    cc = np.clip(x + np.arange(cw) - pad_w // 2, 0, new_w - 1)
+    return rows[rr], cols[cc]
+
+
+# Jitter slot op ids of the device feed (0 leaves a slot unused).
+JITTER_NONE, JITTER_BRIGHT, JITTER_SAT, JITTER_HUE, JITTER_CONTRAST = range(5)
+
+
+def plan_jitter(jit: ColorJitter, rng):
+    """ColorJitter.__call__'s draws (hue, then brightness / contrast /
+    saturation, then the permutation of the ops); returns (op_ids[4],
+    factors[4]), the ops in the order they apply."""
+    bright, contrast, sat, hue = jit._factors(rng)
+    ops = []
+    if bright is not None:
+        ops.append((JITTER_BRIGHT, bright))
+    if sat is not None:
+        ops.append((JITTER_SAT, sat))
+    if hue is not None:
+        ops.append((JITTER_HUE, hue))
+    if contrast is not None:
+        ops.append((JITTER_CONTRAST, contrast))
+    order = rng.permutation(len(ops))
+    op_ids = np.zeros(4, np.int32)
+    factors = np.zeros(4, np.float32)
+    for slot, i in enumerate(order):
+        op_ids[slot], factors[slot] = ops[i]
+    return op_ids, factors
+
+
 class AllAugmentationTransform:
     """Select -> flip -> rotate -> resize -> crop -> jitter -> split
     (pipeline order per reference augmentation.py:363-389)."""
@@ -303,3 +403,42 @@ class AllAugmentationTransform:
         for t in self.transforms:
             clip = t(clip, rng=rng)
         return clip
+
+    # ---------------------------------------------------------- device plans
+    def supports_device_feed(self, h: int, w: int) -> bool:
+        """True when every configured transform has an exact or near-exact
+        form on the card: a nearest resize whose smallest ratio keeps
+        skimage's Gaussian prefilter at radius 0 (a scale above ~0.8)."""
+        if self.resize is not None:
+            if self.resize.interpolation != "nearest":
+                return False
+            lo = min(self.resize.ratio)
+            sig = max(0.0, (1.0 / lo - 1) / 2)
+            if int(4.0 * sig + 0.5) > 0:
+                return False
+        return True
+
+    def plan(self, n_frames: int, h: int, w: int, rng):
+        """One item's augmentation as a plan (see data/device_feed.py), its
+        draws taken in __call__'s order: select, flip, rotation, resize
+        scale, crop offsets, jitter factors and permutation."""
+        frame_idx = plan_select(self.select, n_frames, rng)
+        hflip = False
+        if self.flip is not None:
+            frame_idx, hflip = plan_flip(self.flip, frame_idx, rng)
+        angle = plan_rotation(self.rotation, rng) if self.rotation is not None else 0.0
+        rows, cols = plan_resize_crop(self.resize, self.crop, h, w, rng)
+        if self.jitter is not None:
+            op_ids, factors = plan_jitter(self.jitter, rng)
+        else:
+            op_ids = np.zeros(4, np.int32)
+            factors = np.zeros(4, np.float32)
+        return {
+            "frame_idx": np.asarray(frame_idx, np.int32),
+            "hflip": np.int32(hflip),
+            "angle": np.float32(angle),
+            "rows": np.asarray(rows, np.int32),
+            "cols": np.asarray(cols, np.int32),
+            "jitter_ops": op_ids,
+            "jitter_factors": factors,
+        }

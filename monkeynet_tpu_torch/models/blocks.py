@@ -14,6 +14,7 @@ with plain `load_state_dict`.
 
 from __future__ import annotations
 
+import contextlib
 import math
 from typing import List, Optional, Sequence
 
@@ -84,6 +85,11 @@ class SyncBatchNorm(nn.Module):
     running estimate, torch momentum) on this process only, and gradients
     flow through the batch mean and variance as in the JAX package; the
     cross-process reduction comes with data parallelism.
+
+    `update_running_stats` False (see `frozen_running_stats`) normalises
+    with the batch's statistics as in training but leaves the running ones
+    alone: the recompute of a rematerialised forward must not update them a
+    second time.
     """
 
     def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
@@ -95,6 +101,7 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
+        self.update_running_stats = True
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -105,21 +112,37 @@ class SyncBatchNorm(nn.Module):
             self.num_batches_tracked.zero_()
 
     def forward(self, x):
-        if self.training:
+        if not self.training:
+            mean, var = self.running_mean, self.running_var
+        else:
             xf = x.float().reshape(-1, x.shape[-1])
             cnt = xf.shape[0]
             mean = xf.mean(dim=0)
             var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
-            with torch.no_grad():
-                m = self.momentum
-                unbiased = var * (cnt / max(cnt - 1, 1))
-                self.running_mean.mul_(1.0 - m).add_(m * mean.to(self.running_mean.dtype))
-                self.running_var.mul_(1.0 - m).add_(m * unbiased.to(self.running_var.dtype))
-                self.num_batches_tracked.add_(1)
-        else:
-            mean, var = self.running_mean, self.running_var
+            if self.update_running_stats:
+                with torch.no_grad():
+                    m = self.momentum
+                    unbiased = var * (cnt / max(cnt - 1, 1))
+                    self.running_mean.mul_(1.0 - m).add_(m * mean.to(self.running_mean.dtype))
+                    self.running_var.mul_(1.0 - m).add_(m * unbiased.to(self.running_var.dtype))
+                    self.num_batches_tracked.add_(1)
         inv = torch.rsqrt(var + self.eps)
         return (x - mean.to(x.dtype)) * (inv * self.weight).to(x.dtype) + self.bias.to(x.dtype)
+
+
+@contextlib.contextmanager
+def frozen_running_stats(module: nn.Module):
+    """Within the block, the SyncBatchNorms of `module` leave their running
+    statistics alone (they still normalise with the batch's in training)."""
+    norms = [m for m in module.modules() if isinstance(m, SyncBatchNorm)]
+    saved = [m.update_running_stats for m in norms]
+    for m in norms:
+        m.update_running_stats = False
+    try:
+        yield
+    finally:
+        for m, flag in zip(norms, saved):
+            m.update_running_stats = flag
 
 
 class InstanceNorm(nn.Module):

@@ -26,9 +26,25 @@ the JAX package runs every layer in the compute dtype and keeps f32 exactly
 where the modules say so (batch-norm statistics, keypoint math, the mask
 softmax, every sampling grid), and the port is held against that.
 
+Rematerialisation (`train_params['remat']`): the kp detector's and the
+generator's forwards run under `torch.utils.checkpoint` and are computed
+again in the backward instead of keeping their activations, as the JAX
+package wraps them in `jax.checkpoint`. The recompute leaves the batch-norm
+running statistics alone (`frozen_running_stats`), so that a remat step
+updates them once, as a plain step does.
+
+Several steps a dispatch (`Trainer.run`, the counterpart of
+`make_multi_train_step`): k steps over k stacked batches, or over k stacked
+augmentation plans that the step turns into its batch on the device
+(data/device_feed.py). On the card the step is captured once in a CUDA graph
+and replayed, so the host makes a handful of calls a step instead of
+launching every kernel. For that the optimizers are Adam with
+`capturable=True`, whose rate is a tensor on the card that the host
+schedule fills before every step: a Python float would be baked into the
+graph at capture. On the CPU the same method takes eager steps.
+
 The loop around the step (loader, logger, checkpoints, resume) is
-tasks/train_loop.py. Not here yet: rematerialisation, several steps per
-dispatch, and data parallelism.
+tasks/train_loop.py. Not here yet: data parallelism.
 """
 
 from __future__ import annotations
@@ -38,7 +54,10 @@ from typing import Callable, Dict, Iterable, Optional
 import torch
 from torch import nn
 from torch.func import functional_call
+from torch.utils.checkpoint import checkpoint
 
+from monkeynet_tpu_torch.models.blocks import frozen_running_stats
+from monkeynet_tpu_torch.ops.cuda import launch_counts
 from monkeynet_tpu_torch.tasks.animate import split_kp
 from monkeynet_tpu_torch.tasks.losses import (
     discriminator_loss,
@@ -49,6 +68,10 @@ from monkeynet_tpu_torch.tasks.losses import (
 from monkeynet_tpu_torch.utils.device import require_device
 
 MODEL_NAMES = ("generator", "discriminator", "kp_detector")
+# Eager steps before a capture, undone afterwards: they build the kernels,
+# make the optimizers' state, and run every lazy initialisation of cuBLAS,
+# cuDNN and the allocator outside the captured region.
+GRAPH_WARMUP_STEPS = 2
 
 
 def multistep_lr(base_lr: float, milestones, steps_per_epoch: int, gamma: float = 0.1):
@@ -63,17 +86,31 @@ def multistep_lr(base_lr: float, milestones, steps_per_epoch: int, gamma: float 
     return schedule
 
 
-def make_optimizer(params: Iterable[nn.Parameter], train_params: Dict, steps_per_epoch: int):
+def make_optimizer(params: Iterable[nn.Parameter], train_params: Dict, steps_per_epoch: int,
+                   capturable: bool = False):
     """(Adam(betas=(0.5, 0.999), eps=1e-8), MultiStepLR over
     `epoch_milestones` x `steps_per_epoch`), the scheduler stepped once per
-    train step: the same rates as `multistep_lr`."""
-    optimizer = torch.optim.Adam(params, lr=train_params["lr"], betas=(0.5, 0.999), eps=1e-8)
+    train step: the same rates as `multistep_lr`. `capturable` (CUDA only)
+    keeps Adam's step counts on the card, so that its step can be captured
+    in a CUDA graph."""
+    optimizer = torch.optim.Adam(params, lr=train_params["lr"], betas=(0.5, 0.999), eps=1e-8,
+                                 capturable=capturable)
     scheduler = torch.optim.lr_scheduler.MultiStepLR(
         optimizer,
         milestones=sorted(m * steps_per_epoch for m in train_params["epoch_milestones"]),
         gamma=0.1,
     )
     return optimizer, scheduler
+
+
+def largest_divisor_leq(n: int, k: int) -> int:
+    """Largest divisor of n that is <= k (>= 1): the steps a dispatch that
+    tile the run's step count exactly."""
+    k = max(1, min(k, n))
+    for d in range(k, 0, -1):
+        if n % d == 0:
+            return d
+    return 1
 
 
 def metric_names(train_params) -> list:
@@ -92,6 +129,12 @@ class Trainer:
       `device`, put in training mode and updated in place.
     optimizer_factory: parameters -> torch optimizer, used for each network
       in place of the default Adam with its MultiStepLR (no schedule then).
+
+    `step` takes one eager step; `run` takes several steps of a stacked
+    chunk, through a CUDA graph on the card. `graph_stats` counts what the
+    graph did: the eager warm-up steps before its capture, the kernel
+    launches that the capture recorded (the wrappers' counters see a
+    captured launch once, at the capture, and no replay), and the replays.
     """
 
     def __init__(self, models: Dict[str, nn.Module], train_params: Dict, device="cuda",
@@ -102,14 +145,23 @@ class Trainer:
         self.models = {name: models[name].to(self.device).train() for name in MODEL_NAMES}
         compute_dtype = train_params.get("compute_dtype")
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
+        self.remat = bool(train_params.get("remat", False))
+        capturable = self.device.type == "cuda"
         self.optimizers, self.schedulers = {}, {}
         for name, model in self.models.items():
             if optimizer_factory is not None:
                 self.optimizers[name] = optimizer_factory(model.parameters())
             else:
                 self.optimizers[name], self.schedulers[name] = make_optimizer(
-                    model.parameters(), train_params, steps_per_epoch
+                    model.parameters(), train_params, steps_per_epoch, capturable=capturable
                 )
+        # On the card the scheduled rates reach Adam as tensors, filled from
+        # the host schedule before every step (`_load_rates`); the param
+        # groups keep the host's float, which is what checkpoints hold.
+        self._rates = {name: torch.zeros((), device=self.device)
+                       for name in self.schedulers if capturable}
+        self._graph = None
+        self.graph_stats = {"warmup_steps": 0, "captured": {}, "replays": 0}
 
     def _cast(self, t):
         if self.compute_dtype is not None and t.is_floating_point():
@@ -127,6 +179,25 @@ class Trainer:
             out[k] = self._cast(v)
         return out
 
+    def _forward(self, name, params, args):
+        """functional_call of one network; under remat, recomputed in the
+        backward with its running statistics left alone the second time."""
+        model = self.models[name]
+        if not self.remat:
+            return functional_call(model, params, args)
+        calls = []
+
+        def run(*inputs):
+            calls.append(None)
+            if len(calls) == 1:
+                return functional_call(model, params, inputs)
+            with frozen_running_stats(model):
+                return functional_call(model, params, inputs)
+
+        # No random ops run here, so there is no RNG state to carry over
+        # (saving it would read the generator, which a capture refuses).
+        return checkpoint(run, *args, use_reentrant=False, preserve_rng_state=False)
+
     def objective(self, batch):
         """loss_G + loss_D at the current parameters, with the metrics, the
         generator's outputs and the joined keypoints."""
@@ -139,15 +210,11 @@ class Trainer:
         batch = self._prepare(batch)
         source, video = batch["source"], batch["video"]
 
-        kp_joined = functional_call(
-            self.models["kp_detector"], params["kp_detector"],
-            (torch.cat([source, video], dim=1),),
-        )
+        kp_joined = self._forward("kp_detector", params["kp_detector"],
+                                  (torch.cat([source, video], dim=1),))
         kps = split_kp(kp_joined, tp["detach_kp_generator"])
-        generated = functional_call(
-            self.models["generator"], params["generator"],
-            (source, kps["kp_driving"], kps["kp_source"]),
-        )
+        generated = self._forward("generator", params["generator"],
+                                  (source, kps["kp_driving"], kps["kp_source"]))
 
         def discriminate(d_params, frames, kp):
             return functional_call(
@@ -178,19 +245,26 @@ class Trainer:
         metrics = torch.stack(gen_means + disc_means)
         return sum(gen_means) + sum(disc_means), metrics, generated, kp_joined
 
-    def step(self, batch) -> Dict:
-        """One train step on {'source': (B,1,H,W,C), 'video': (B,Dv,H,W,C)},
-        float in [0, 1] or uint8. Returns {'metrics' (in `metric_names`
-        order), 'video_prediction', 'video_deformed', 'kp_joined'}, detached
-        and on the device."""
+    def _update(self, batch) -> Dict:
+        """The step's work on the device: gradients at the current
+        parameters, then the three optimizer steps. Leaves the host
+        schedules alone; nothing in it waits on the card."""
         for optimizer in self.optimizers.values():
             optimizer.zero_grad(set_to_none=True)
         loss, metrics, generated, kp_joined = self.objective(batch)
         loss.backward()
         for name in MODEL_NAMES:
-            self.optimizers[name].step()
-            if name in self.schedulers:
-                self.schedulers[name].step()
+            optimizer = self.optimizers[name]
+            rate = self._rates.get(name)
+            if rate is None:
+                optimizer.step()
+                continue
+            (group,) = optimizer.param_groups
+            host_lr, group["lr"] = group["lr"], rate
+            try:
+                optimizer.step()
+            finally:
+                group["lr"] = host_lr
         return {
             "metrics": metrics.detach(),
             "video_prediction": generated["video_prediction"].detach(),
@@ -198,14 +272,175 @@ class Trainer:
             "kp_joined": {k: v.detach() for k, v in kp_joined.items()},
         }
 
+    def _load_rates(self) -> None:
+        for name, rate in self._rates.items():
+            rate.fill_(self.optimizers[name].param_groups[0]["lr"])
+
+    def _advance_schedules(self) -> None:
+        for scheduler in self.schedulers.values():
+            scheduler.step()
+
+    def step(self, batch) -> Dict:
+        """One train step on {'source': (B,1,H,W,C), 'video': (B,Dv,H,W,C)},
+        float in [0, 1] or uint8. Returns {'metrics' (in `metric_names`
+        order), 'video_prediction', 'video_deformed', 'kp_joined'}, detached
+        and on the device."""
+        self._load_rates()
+        out = self._update(batch)
+        self._advance_schedules()
+        return out
+
+    def run(self, chunk: Dict, start: int = 0, stop: Optional[int] = None,
+            vis_steps: Iterable[int] = (), augment: Optional[Callable] = None,
+            graph: bool = True):
+        """Steps `start` .. `stop` - 1 of a chunk of stacked step inputs.
+
+        chunk: {key: (k, ...) tensor}: 'source' and 'video' batches, or with
+          `augment` (plan -> {'source', 'video'} f32 on the device, e.g. the
+          device feed's executor bound to its video cache) one plan a step.
+        vis_steps: the steps whose visuals to keep.
+
+        Returns (metrics (stop - start, M) f32 on the device, {j: visuals})
+        with `step`'s outputs for each j in vis_steps (and, with `augment`,
+        the step's augmented 'source' and 'video'). On the card the first
+        call captures the step in a CUDA graph, which every later call
+        replays; a capture that fails raises. `graph` False, and the CPU,
+        take eager steps.
+        """
+        stop = len(next(iter(chunk.values()))) if stop is None else stop
+        vis_steps = set(vis_steps)
+        if self.device.type != "cuda" or not graph:
+            metrics, vis = [], {}
+            for j in range(start, stop):
+                batch = {k: v[j] for k, v in chunk.items()}
+                if augment is not None:
+                    with torch.no_grad():
+                        batch = augment(batch)
+                out = self.step(batch)
+                metrics.append(out["metrics"])
+                if j in vis_steps:
+                    vis[j] = dict(out, **batch) if augment is not None else out
+            return torch.stack(metrics), vis
+
+        static, captured, out = self._graph_for(chunk, start, augment)
+        metrics = torch.empty((stop - start,) + tuple(out["metrics"].shape),
+                              dtype=out["metrics"].dtype, device=self.device)
+        vis = {}
+        for j in range(start, stop):
+            for k, v in static.items():
+                v.copy_(chunk[k][j])
+            self._load_rates()
+            captured.replay()
+            self._advance_schedules()
+            self.graph_stats["replays"] += 1
+            metrics[j - start].copy_(out["metrics"])
+            if j in vis_steps:
+                vis[j] = _clone_tree(out)
+        return metrics, vis
+
+    @property
+    def graph(self):
+        """The captured CUDA graph of the step (None before `run` captured
+        it on the card)."""
+        return None if self._graph is None else self._graph[1][1]
+
+    def _graph_for(self, chunk, start, augment):
+        """The captured step for this chunk's inputs: captured at the first
+        call, then checked against every later one."""
+        signature = (augment,
+                     tuple((k, tuple(v.shape[1:]), v.dtype) for k, v in sorted(chunk.items())))
+        if self._graph is None:
+            self._graph = (signature, self._capture({k: v[start] for k, v in chunk.items()},
+                                                    augment))
+        elif self._graph[0] != signature:
+            raise ValueError("Trainer.run: the chunk's inputs differ from those the CUDA graph "
+                             "was captured with")
+        return self._graph[1]
+
+    def _capture(self, slot, augment):
+        """Capture one step in a CUDA graph, PyTorch's whole-network recipe:
+        eager warm-up steps on a side stream (then undone, so the run's
+        steps are all replays), grads set to None, and the step captured
+        with its inputs read from static tensors. Returns (static inputs,
+        graph, static outputs)."""
+        static = {k: v.clone() for k, v in slot.items()}
+
+        def body():
+            batch = static
+            if augment is not None:
+                with torch.no_grad():
+                    batch = augment(static)
+            out = self._update(batch)
+            if augment is not None:
+                out.update(source=batch["source"], video=batch["video"])
+            return out
+
+        saved, fresh = self._snapshot()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(torch.cuda.current_stream(self.device))
+        with torch.cuda.stream(side):
+            for _ in range(GRAPH_WARMUP_STEPS):
+                self._load_rates()
+                body()
+        torch.cuda.current_stream(self.device).wait_stream(side)
+        self._restore(saved, fresh)
+        del saved
+        for optimizer in self.optimizers.values():
+            optimizer.zero_grad(set_to_none=True)
+        before = launch_counts()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph):
+                out = body()
+        except RuntimeError as e:
+            raise RuntimeError(
+                f"capturing the train step in a CUDA graph failed ({e}); "
+                "train_params.steps_per_dispatch: 1 takes eager steps"
+            ) from e
+        after = launch_counts()
+        self.graph_stats["warmup_steps"] += GRAPH_WARMUP_STEPS
+        self.graph_stats["captured"] = {k: after[k] - before[k] for k in after}
+        return static, graph, out
+
+    def _snapshot(self):
+        """Copies of every tensor a step changes: parameters, buffers and
+        optimizer state; and the (optimizer, parameter) pairs that have no
+        optimizer state yet."""
+        tensors = [t for model in self.models.values()
+                   for t in (*model.parameters(), *model.buffers())]
+        fresh = []
+        for optimizer in self.optimizers.values():
+            for group in optimizer.param_groups:
+                for p in group["params"]:
+                    state = optimizer.state.get(p)
+                    if state:
+                        tensors += [v for v in state.values() if torch.is_tensor(v)]
+                    else:
+                        fresh.append((optimizer, p))
+        return [(t, t.detach().clone()) for t in tensors], fresh
+
+    @torch.no_grad()
+    def _restore(self, saved, fresh) -> None:
+        """Undo the steps taken since `_snapshot`, in place. State that the
+        optimizers made in those steps is zeroed, Adam's fresh state; the
+        tensors stay, so a capture finds it made."""
+        for t, value in saved:
+            t.copy_(value)
+        for optimizer, p in fresh:
+            for v in optimizer.state[p].values():
+                if torch.is_tensor(v):
+                    v.zero_()
+
     def state_dict(self) -> Dict:
         """The entries of a reference checkpoint: each network's state_dict
         under its name, its optimizer's as 'optimizer_<name>', and its
-        MultiStepLR's as 'scheduler_<name>'."""
+        MultiStepLR's as 'scheduler_<name>'. The optimizer's state is in the
+        form an eager Adam keeps: step counts as f32 CPU tensors and
+        `capturable` False."""
         out = {}
         for name in MODEL_NAMES:
             out[name] = self.models[name].state_dict()
-            out[f"optimizer_{name}"] = self.optimizers[name].state_dict()
+            out[f"optimizer_{name}"] = _eager_optimizer_state(self.optimizers[name].state_dict())
             if name in self.schedulers:
                 out[f"scheduler_{name}"] = self.schedulers[name].state_dict()
         return out
@@ -216,7 +451,9 @@ class Trainer:
         network's optimizer state comes without a scheduler's (the
         reference's own checkpoints), the scheduler resumes at the
         optimizer's step, as the JAX package's schedule does on resume
-        (`restore_adam_moments` in monkeynet_tpu/tasks/train.py)."""
+        (`restore_adam_moments` in monkeynet_tpu/tasks/train.py). A captured
+        graph is dropped (the optimizer state it read is replaced)."""
+        self._graph = None
         for name in MODEL_NAMES:
             if name not in state:
                 continue
@@ -224,6 +461,8 @@ class Trainer:
             opt_state = state.get(f"optimizer_{name}")
             if opt_state is not None:
                 self.optimizers[name].load_state_dict(opt_state)
+                if name in self._rates:
+                    _make_capturable(self.optimizers[name])
             if name not in self.schedulers:
                 continue
             if f"scheduler_{name}" in state:
@@ -232,3 +471,32 @@ class Trainer:
                 self.schedulers[name].last_epoch = max(
                     int(s["step"]) for s in opt_state["state"].values()
                 )
+
+
+def _clone_tree(tree):
+    if isinstance(tree, dict):
+        return {k: _clone_tree(v) for k, v in tree.items()}
+    return tree.clone()
+
+
+def _eager_optimizer_state(state: Dict) -> Dict:
+    """An optimizer state_dict in the form a non-capturable Adam gives it."""
+    if not any(group.get("capturable") for group in state["param_groups"]):
+        return state
+    return {
+        "state": {idx: {k: (v.detach().to("cpu", torch.float32) if k == "step" else v)
+                        for k, v in entry.items()}
+                  for idx, entry in state["state"].items()},
+        "param_groups": [dict(group, capturable=False) for group in state["param_groups"]],
+    }
+
+
+def _make_capturable(optimizer) -> None:
+    """After load_state_dict of an eager-form state: capturable groups, step
+    counts on the parameters' device."""
+    for group in optimizer.param_groups:
+        group["capturable"] = True
+        for p in group["params"]:
+            state = optimizer.state.get(p)
+            if state and "step" in state:
+                state["step"] = state["step"].to(device=p.device, dtype=torch.float32)

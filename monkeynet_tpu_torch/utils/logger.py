@@ -36,7 +36,7 @@ class Logger:
         zfill_num: int = 8,
         visualizer_params: Optional[dict] = None,
     ):
-        self.loss_list: List[torch.Tensor] = []
+        self.loss_list: List = []
         self.cpk_dir = log_dir
         self.visualizations_dir = os.path.join(log_dir, "train-vis")
         os.makedirs(self.visualizations_dir, exist_ok=True)
@@ -57,8 +57,10 @@ class Logger:
 
     # ---------------------------------------------------------------- scores
     def log_scores(self, loss_names):
-        # One device-to-host copy for all the steps since the last line.
-        rows = torch.stack([torch.as_tensor(v) for v in self.loss_list]).cpu().numpy()
+        # One device-to-host copy for all the steps since the last line:
+        # rows lo .. hi - 1 of each chunk's (k, M) stack.
+        rows = torch.cat([torch.as_tensor(values)[lo:hi]
+                          for values, lo, hi in self.loss_list]).cpu().numpy()
         loss_mean = rows.mean(axis=0)
         elapsed = time.time() - self._t_last
         sps = self._steps_since_log / elapsed if elapsed > 0 else float("nan")
@@ -138,18 +140,44 @@ class Logger:
         it is not read until the next log boundary). At a boundary, writes
         the line and, when `vis` is given, the gif of `vis() -> (inp, out)`,
         which is called there and only there."""
-        self.it = it
-        self._steps_since_log += 1
-        self.loss_list.append(values)
-        if it % self.log_freq == 0:
+        self.log_chunk(it, names, torch.as_tensor(values)[None], 1,
+                       vis=None if vis is None else lambda j: vis())
+
+    def log_chunk(self, it0: int, names, values, nsteps: int, vis: Optional[Callable] = None):
+        """Record the (nsteps, M) loss `values` of steps it0 .. it0 +
+        nsteps - 1 (on the device is fine). Writes exactly the lines that
+        `log_iter` would write step by step: one at each iteration divisible
+        by log_freq, over the running mean of the rows since the line
+        before; at each, the gif of `vis(j) -> (inp, out)` for the chunk's
+        step j, called there and only there."""
+        end = it0 + nsteps
+        cursor = 0
+        boundary = -(-it0 // self.log_freq) * self.log_freq  # the first >= it0
+        while boundary < end:
+            j = boundary - it0
+            self.loss_list.append((values, cursor, j + 1))
+            self._steps_since_log += j + 1 - cursor
+            cursor = j + 1
+            self.it = boundary
             self.log_scores(names)
             if vis is not None:
-                self.visualize_rec(*vis())
+                self.visualize_rec(*vis(j))
+            boundary += self.log_freq
+        if cursor < nsteps:
+            self.loss_list.append((values, cursor, nsteps))
+            self._steps_since_log += nsteps - cursor
+        self.it = end - 1
 
-    def log_epoch(self, epoch: int, payload):
+    def log_epoch(self, epoch: int, payload, prev_epoch: Optional[int] = None):
         """payload: checkpoint dict, or a zero-arg callable returning one
-        (called only when a checkpoint is written)."""
+        (called only when a checkpoint is written).
+
+        With `prev_epoch` (a dispatch of several steps can finish several
+        epochs), the checkpoint is written if any epoch in (prev_epoch,
+        epoch] is due, so that a chunk never skips a scheduled one; it is
+        labelled `epoch`."""
         self.epoch = epoch
         self.payload = payload
-        if epoch % self.cpk_freq == 0:
+        lo = epoch if prev_epoch is None else prev_epoch + 1
+        if any(e % self.cpk_freq == 0 for e in range(lo, epoch + 1)):
             self.save_cpk()
