@@ -77,18 +77,37 @@ Phases, each of which raises on failure:
      graphed and eager step alone, one chunk's busy share, the cache and
      peak memory; (d) remat on configs/shapes-256.yaml as shipped over the
      first 64 videos of data/shapes256: a step with and without, peak
-     memory and time, and a graphed remat step.
+     memory and time, and a graphed remat step;
+  8. data parallelism (parallel_phase): (a) over an explicit one-rank NCCL
+     group whose all-reduces are captured in the step's graph: one graphed
+     step of configs/shapes.yaml equal to the unsharded step bit for bit
+     outside the appearance encoder (where d_src's f32 sums differ run to
+     run) and its gradients within train parity's limit inside it; phase 5's cut
+     through train() over the group, launches as capture x replays with the
+     captured all-reduces and a profiler trace of one replay, rank 0's rows,
+     gifs and checkpoints; (b) two gloo ranks sharing the card at
+     configs/actions.yaml's width, the batch of 32 as two slabs of 16, 2
+     eager device-fed SGD steps in bf16 and f32 against one process at 32
+     (parameters within the train-parity limit, the first f32 update too,
+     running statistics, num_batches_tracked, launches a rank; a control
+     with the batch's halves swapped), each rank's four train kernels
+     held against their plain versions at its shapes; (c) frame-sharded eval
+     over the card named twice on (a)'s checkpoint: the engines,
+     reconstruction() and the move_location transfer() against the
+     unsharded ones, and the moving-gif demo at 128^2, launches counted.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, where CUDA is missing or where the
 repository is not beside it. It imports nothing of JAX. `--only PHASE ...`
-(kernels, parity, main, loop, dispatch) runs only those phases after the
-build and prints no result line.
+(kernels, parity, main, loop, dispatch, parallel) runs only those phases
+after the build and prints no result line.
 """
 
 from __future__ import annotations
 
+import contextlib
+import hashlib
 import json
 import math
 import os
@@ -1496,6 +1515,7 @@ def _profiled(fn, trace_path: Path) -> dict:
             reach = b
     return {"launches": {name: sum(prefix in e["name"] for e in events)
                          for name, prefix in TRACE_KERNELS.items()},
+            "nccl": sum("nccl" in e["name"].lower() for e in events),
             "kernels": len(events), "busy_us": busy, "span_us": spans[-1][1] - spans[0][0],
             "wall_us": wall_s * 1e6}
 
@@ -2480,15 +2500,731 @@ def dispatch_phase(work_dir: Path, smi: str, device="cuda") -> dict:
     return result
 
 
+# ---- phase 8: data parallelism --------------------------------------------------
+
+# (b) Two gloo ranks share the card (NCCL refuses two ranks on one GPU) at
+# configs/actions.yaml's width: the global batch of AUG_BATCH (32) as two
+# slabs of 16, PARALLEL_STEPS device-fed eager steps from one state, against
+# one process at the whole batch. SGD (_sgd), so that a step moves each
+# parameter by its gradient times the rate; every run's step j starts from
+# the one process's state before its step j. Other batch sizes give cuDNN
+# other algorithms, so the two cannot agree bit for bit. Held
+# (`parallel_refusals`): in f32 the first step's update, as the relative L2
+# gap of each network's whole update, to train parity's gradient limit (the
+# later steps' are printed: their start carries d_src's run-to-run order, and
+# there the control reads 7.5e-3 to 2.1e-2 from one call to the next); in both
+# dtypes the running statistics after each step and the metrics to train
+# parity's limits in f32 and to the bf16 limits below; and the ranks'
+# parameters and statistics equal bit for bit. The bf16 limits come from
+# scripts/parallel_fault_probe.py, which reads each planted fault refused in
+# both dtypes (H100, 700 W): sound ranks 4.1e-4 / 7.1e-4 (running statistics) and 3.8e-3
+# (metrics); batch norms on the rank's own slab 4.8e-3 to 6.4e-3; losses
+# not divided by the world 1.0. The bf16 update is printed, not held: at
+# this width bf16 rounding alone (one process, the batch's halves swapped)
+# moves it by 0.16 to 0.41, the sound ranks read 0.42 to 0.87 and the faults
+# 0.86 to 1.5.
+PARALLEL_STEPS = 2
+PARALLEL_RANKS = 2
+PARALLEL_UPDATE_TOL = {"float32": PARITY_TOL["grad_rel_l2"]}
+PARALLEL_BN_TOL = {"float32": PARITY_TOL["bn_stats_max_abs"], "bfloat16": 2.5e-3}
+PARALLEL_METRICS_TOL = {"float32": PARITY_TOL["metrics_max_rel"], "bfloat16": 1e-2}
+# (c) frame-sharded eval over the card named twice. The outputs against the
+# unsharded path's, f32: the same per-frame arithmetic, with cuDNN free to
+# pick other algorithms for the half-size conv batches.
+SHARDED_DEVICES = ("cuda:0", "cuda:0")
+SHARDED_EVAL_TOL = 1e-5
+
+
+def _process_group(backend: str):
+    """A one-rank process group of this process, on a free localhost port."""
+    import torch.distributed as dist
+
+    from monkeynet_tpu_torch.parallel.distributed import free_port
+
+    dist.init_process_group(backend, init_method=f"tcp://127.0.0.1:{free_port()}", rank=0,
+                            world_size=1)
+    return dist.group.WORLD
+
+
+def _norm_layers(trainer) -> int:
+    from monkeynet_tpu_torch.models.blocks import SyncBatchNorm
+
+    return sum(isinstance(m, SyncBatchNorm) for model in trainer.models.values()
+               for m in model.modules())
+
+
+def _step_state(trainer) -> dict:
+    """Copies of a trainer's state_dicts, gradients and Adam state, keyed
+    '<network>.<parameter or buffer>[.grad | .adam_<key>]'."""
+    import torch
+
+    out = {}
+    for name, model in trainer.models.items():
+        for key, value in model.state_dict().items():
+            out[f"{name}.{key}"] = value.detach().clone()
+        for key, p in model.named_parameters():
+            out[f"{name}.{key}.grad"] = p.grad.detach().clone()
+            for k, v in trainer.optimizers[name].state[p].items():
+                if torch.is_tensor(v):
+                    out[f"{name}.{key}.adam_{k}"] = v.detach().clone()
+    return out
+
+
+def _grad_rel_l2(a: dict, b: dict, prefix: str) -> float:
+    """Relative L2 gap of the gradients under `prefix` of two `_step_state`s."""
+    import torch
+
+    keys = sorted(k for k in b if k.startswith(prefix) and k.endswith(".grad"))
+    ga, gb = (torch.cat([s[k].double().flatten() for k in keys]) for s in (a, b))
+    return ((ga - gb).norm() / gb.norm()).item()
+
+
+def _gaps(a: dict, b: dict) -> dict:
+    """{key: largest absolute difference} of the tensors not equal bit for bit."""
+    import torch
+
+    return {k: (a[k].double() - b[k].double()).abs().max().item()
+            for k in a if not torch.equal(a[k], b[k])}
+
+
+def one_rank_nccl_phase(work_dir: Path, smi: str, device="cuda") -> dict:
+    """(a) The sharded train path over an explicit one-rank NCCL group,
+    whose all-reduces are captured in the step's CUDA graph with the
+    kernels, on phase 5's cut of configs/shapes.yaml (f32, the device feed).
+
+    Exactness: one graphed step from the seed's weights on the cut's first
+    plan, twice unsharded and once over the group (cuDNN deterministic).
+    An all-reduce over one rank and a division by 1.0 are exact, so the
+    group's metrics and every parameter, gradient, running statistic and
+    Adam moment must equal the unsharded step's bit for bit, except where
+    d_src's gradient lands: d_src adds a cell's points in the order its
+    atomics placed them, so the appearance encoder's gradients (the only
+    ones it feeds) differ run to run in f32 (two unsharded steps too), and
+    there the group's gradients are held to the train-parity limit
+    (scripts/train_determinism_probe.py: after more steps that order spreads
+    to every network).
+
+    The loop: train() on the cut (512 videos, 2 epochs of 32 steps, k = 32)
+    over the group: launches as the capture's per step x replays, the
+    all-reduces the capture recorded (one a batch norm forward and one
+    backward, one for the metrics, one a network's gradients), one replay
+    under the profiler, log rows, gifs and checkpoints from rank 0, the last
+    checkpoint equal to the final state. Returns, beside the numbers, that
+    checkpoint for (c)."""
+    import torch
+    import torch.distributed as dist
+
+    from monkeynet_tpu_torch.data.dataset import FramesDataset
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import MODEL_NAMES, Trainer, largest_divisor_leq
+    from monkeynet_tpu_torch.tasks.train_loop import train
+    from monkeynet_tpu_torch.utils.checkpoint import checkpoint_name, load_checkpoint
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    config = load_config(str(REPO / "configs" / "shapes.yaml"))
+    config["dataset_params"]["root_dir"] = str(REPO / "data" / "shapes")
+    tp = config["train_params"]
+    tp.update(num_epochs=LOOP_EPOCHS,
+              log_params={"log_freq_iter": LOOP_LOG_FREQ, "cpk_freq_epoch": 1})
+    dataset = FramesDataset(is_train=True, **config["dataset_params"])
+    dataset.images = dataset.images[:LOOP_VIDEOS]
+    steps = LOOP_EPOCHS * (LOOP_VIDEOS // tp["batch_size"])
+    k = largest_divisor_leq(steps, 32)
+    per_step = _step_launches(config)
+    counters = _counters()
+
+    # exactness, one graphed step
+    execute, cache, lengths = _device_feed_of(dataset, dataset.image_shape, device)
+    chunk = _plan_chunk(dataset, lengths, tp["batch_size"], 1, device)
+
+    def augment(plan):
+        return execute(cache, plan)
+
+    deterministic = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    step = {}
+    try:
+        for label in ("unsharded", "unsharded_again", "nccl_one_rank"):
+            group = _process_group("nccl") if label == "nccl_one_rank" else None
+            try:
+                trainer = Trainer(build_train_models(config, device=device, seed=SEED), tp,
+                                  device=device, steps_per_epoch=100, group=group)
+                metrics, _ = trainer.run(chunk, 0, 1, augment=augment)
+                step[label] = (metrics.cpu(), _step_state(trainer))
+                del trainer
+            finally:
+                if group is not None:
+                    dist.destroy_process_group()
+    finally:
+        torch.backends.cudnn.deterministic = deterministic
+    del cache
+    encoder = "generator.appearance_encoder."
+    spread = _gaps(step["unsharded_again"][1], step["unsharded"][1])
+    reading = _gaps(step["nccl_one_rank"][1], step["unsharded"][1])
+    exact = {
+        "metrics_equal": torch.equal(step["nccl_one_rank"][0], step["unsharded"][0]),
+        "tensors": len(reading) + sum(1 for key in step["unsharded"][1] if key not in reading),
+        "outside_encoder_differing": sorted(k for k in reading if not k.startswith(encoder)),
+        "outside_encoder_differing_unsharded": sorted(k for k in spread
+                                                      if not k.startswith(encoder)),
+        "encoder_max_gap": max(reading.values(), default=0.0),
+        "encoder_max_gap_unsharded": max(spread.values(), default=0.0),
+        "encoder_differing": len(reading), "encoder_differing_unsharded": len(spread),
+        "encoder_grad_rel_l2": _grad_rel_l2(step["nccl_one_rank"][1], step["unsharded"][1],
+                                            encoder),
+        "encoder_grad_rel_l2_unsharded": _grad_rel_l2(step["unsharded_again"][1],
+                                                      step["unsharded"][1], encoder),
+    }
+    del step
+
+    log_dir = work_dir / "parallel_nccl_one_rank"
+    log_dir.mkdir()
+    group = _process_group("nccl")
+    try:
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        run = train(config, str(log_dir), dataset, seed=SEED, device=device, group=group)
+        counted = {name: fn.launches for name, fn in counters.items()}
+        if run.steps != steps or run.steps_per_dispatch != k or not run.device_feed:
+            raise AssertionError(f"parallel (a): {run.steps} steps, k = {run.steps_per_dispatch}")
+        launches = _graph_launches("parallel (a)", run.trainer, counted, per_step, steps)
+        captured = run.trainer.graph_stats["captured_collectives"]
+        want_collectives = 2 * _norm_layers(run.trainer) + 1 + len(MODEL_NAMES)
+        final = _same_state(load_checkpoint(str(log_dir / checkpoint_name(LOOP_EPOCHS - 1))),
+                            {**run.trainer.state_dict(), "epoch": LOOP_EPOCHS - 1,
+                             "it": steps - 1}, "parallel (a) final state")
+        trace = _replay_counts("parallel (a)", run.trainer, per_step, work_dir)
+        wall_s, rows = run.wall_s, _log_rows(log_dir)
+        del run
+    finally:
+        dist.destroy_process_group()
+    gifs = sorted(p.name for p in (log_dir / "train-vis").iterdir())
+    result = {"phase": "parallel_one_rank_nccl", "config": "configs/shapes.yaml",
+              "videos": LOOP_VIDEOS, "steps": steps, "steps_per_dispatch": k,
+              "one_step_exactness": exact, "launches": launches,
+              "captured_collectives_per_step": captured,
+              "expected_collectives_per_step": want_collectives,
+              "collectives_in_replays": captured * steps, "replay_trace": trace,
+              "loop_wall_s": wall_s, "loop_steps_per_s": steps / wall_s,
+              "last_checkpoint_tensors_equal": final, "card": smi}
+    log(result)
+    log(f"parallel (a): one graphed step over a one-rank NCCL group: metrics equal "
+        f"{exact['metrics_equal']}, {len(exact['outside_encoder_differing'])} tensors outside "
+        f"the appearance encoder differ from the unsharded step (two unsharded steps: "
+        f"{len(exact['outside_encoder_differing_unsharded'])}); the encoder {exact['encoder_max_gap']:.3e}"
+        f" apart, its gradients {exact['encoder_grad_rel_l2']:.3e} relative L2 (two unsharded "
+        f"steps: {exact['encoder_max_gap_unsharded']:.3e}, "
+        f"{exact['encoder_grad_rel_l2_unsharded']:.3e})")
+    log(f"parallel (a): train() over the group, launches {launches} (capture x {steps} "
+        f"replays), {captured} all-reduces captured a step (x {steps} replays = "
+        f"{captured * steps}); one replay's trace: {trace['launches']}, {trace['nccl']} NCCL "
+        f"kernels; {steps / wall_s:.3f} steps/s over the loop's wall on {smi}")
+    if not exact["metrics_equal"] or exact["outside_encoder_differing"] \
+            or exact["outside_encoder_differing_unsharded"]:
+        raise AssertionError(f"parallel (a): one step over the group is not the unsharded "
+                             f"step bit for bit outside the appearance encoder: {exact}")
+    check("parallel (a) the appearance encoder's gradients (relative L2)",
+          exact["encoder_grad_rel_l2"], PARITY_TOL["grad_rel_l2"])
+    if captured != want_collectives:
+        raise AssertionError(f"parallel (a): {captured} all-reduces captured a step, want "
+                             f"{want_collectives}")
+    if [it for it, _, _ in rows] != list(range(0, steps, LOOP_LOG_FREQ)) or gifs != [
+            f"{it:08d}-rec.gif" for it, _, _ in rows] or not all(
+            math.isfinite(v) for _, values, _ in rows for v in values.values()):
+        raise AssertionError(f"parallel (a): log rows {rows}, gifs {gifs}")
+    result["checkpoint"] = str(log_dir / checkpoint_name(LOOP_EPOCHS - 1))
+    return result
+
+
+def _parallel_inputs(world: int, rank: int, device, swap: bool = False):
+    """(config, augment, chunk of PARALLEL_STEPS plans on the card) of
+    configs/actions.yaml for `rank` of `world` slabs of the AUG_BATCH
+    batch: the device feed's cache and plan_stream's shard. `swap` puts the
+    second half of each batch first (the same batch in another order)."""
+    import numpy as np
+    import torch
+
+    from monkeynet_tpu_torch.data.device_feed import plan_stream
+
+    config, dataset, image_shape = _actions(device)
+    execute, cache, lengths = _device_feed_of(dataset, image_shape, device)
+    local = AUG_BATCH // world
+    plans = []
+    for _, plan in plan_stream(dataset, dataset.transform, lengths, local, SEED, 0,
+                               PARALLEL_STEPS, num_shards=world, shard_index=rank):
+        plans.append(plan)
+    plans = plans[:PARALLEL_STEPS]
+    chunk = {key: torch.from_numpy(np.stack([p[key] for p in plans])).to(device)
+             for key in plans[0]}
+    if swap:
+        chunk = {key: v.roll(local // 2, dims=1) for key, v in chunk.items()}
+
+    def augment(plan):
+        return execute(cache, plan)
+
+    return config, augment, chunk
+
+
+def _groups(state: dict) -> dict:
+    """The parameters of a `_state_tensors` (no running statistics),
+    flattened and concatenated per top-level sub-module, on the CPU."""
+    import torch
+
+    groups = {}
+    for key, value in state.items():
+        if "running_" not in key:
+            groups.setdefault(".".join(key.split(".")[:2]), []).append(value.flatten().cpu())
+    return {k: torch.cat(v) for k, v in groups.items()}
+
+
+def _parallel_steps(world: int, rank: int, device, group=None, swap: bool = False,
+                    starts=None) -> dict:
+    """PARALLEL_STEPS eager SGD steps of configs/actions.yaml on this rank's
+    slab, bf16 and f32, from the seed's weights. With `starts` (a one-process
+    run's), step j starts from that run's state before its step j, so that
+    every run's step j is the gradient of one batch at one point; without,
+    the steps follow on and their starting states are returned as `starts`.
+    Per dtype: each step's parameter update and the running statistics
+    after it (CPU, by sub-module), the parameters after the last step, the
+    num_batches_tracked, the metrics and the launches counted."""
+    import torch
+
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.train import Trainer
+
+    config, augment, chunk = _parallel_inputs(world, rank, device, swap)
+    counters = _counters()
+    out = {}
+    for dtype in ("bfloat16", "float32"):
+        tp = dict(config["train_params"], compute_dtype=None if dtype == "float32" else dtype)
+        trainer = Trainer(build_train_models(config, device=device, seed=SEED), tp,
+                          device=device, optimizer_factory=_sgd, group=group)
+        torch.cuda.synchronize()
+        for fn in counters.values():
+            fn.launches = 0
+        updates, running, metrics, own, seconds = [], [], [], [], 0.0
+        for j in range(PARALLEL_STEPS):
+            if starts is None:
+                own.append({name: {k: v.detach().cpu().clone()
+                                   for k, v in model.state_dict().items()}
+                            for name, model in trainer.models.items()})
+            else:
+                for name, model in trainer.models.items():
+                    model.load_state_dict(starts[dtype][j][name])
+            before = _groups(_state_tensors(trainer))
+            t0 = time.perf_counter()
+            m, _ = trainer.run(chunk, j, j + 1, augment=augment, graph=False)
+            torch.cuda.synchronize()
+            seconds += time.perf_counter() - t0
+            state = _state_tensors(trainer)
+            after = _groups(state)
+            updates.append({k: after[k] - before[k] for k in after})
+            running.append({k: v.cpu() for k, v in state.items() if "running_" in k})
+            metrics.append(m[0].float().cpu())
+        out[dtype] = {
+            "updates": updates, "running": running, "params": after, "starts": own,
+            "tracked": sorted({int(b) for model in trainer.models.values()
+                               for key, b in model.named_buffers()
+                               if key.endswith("num_batches_tracked")}),
+            "metrics": torch.stack(metrics),
+            "launches": {name: fn.launches for name, fn in counters.items()},
+            "seconds": seconds,
+        }
+        del trainer
+    return out
+
+
+def _rel_l2(got: dict, want: dict):
+    """(largest relative L2 gap of a sub-module, which one)."""
+    rel = {k: ((got[k] - want[k]).norm() / want[k].norm().clamp_min(1e-30)).item()
+           for k in want}
+    worst = max(rel, key=rel.get)
+    return rel[worst], worst
+
+
+def _by_network(groups: dict) -> dict:
+    """Sub-module groups concatenated per network."""
+    import torch
+
+    nets = {}
+    for key, value in groups.items():
+        nets.setdefault(key.split(".")[0], []).append(value)
+    return {k: torch.cat(v) for k, v in nets.items()}
+
+
+def _compare_parallel(got: dict, want: dict) -> dict:
+    """A `_parallel_steps` run from the one process's starts against the
+    one process's, per dtype: for each step the largest relative L2 gap of
+    a sub-module's update and of a network's whole update, and the largest
+    absolute gap of a running statistic after it; the largest relative gap
+    of a metric, per step; the parameters' relative L2 gap after the last
+    step (printed only: a step moves them by ~1e-3 of their size)."""
+    out = {}
+    for dtype, g in got.items():
+        w = want[dtype]
+        steps = [_rel_l2(gu, wu) for gu, wu in zip(g["updates"], w["updates"])]
+        nets = [_rel_l2(_by_network(gu), _by_network(wu))
+                for gu, wu in zip(g["updates"], w["updates"])]
+        out[dtype] = {
+            "update_rel_l2": [gap for gap, _ in steps],
+            "update_rel_l2_worst": [where for _, where in steps],
+            "network_update_rel_l2": [gap for gap, _ in nets],
+            "network_update_rel_l2_worst": [where for _, where in nets],
+            "params_rel_l2": _rel_l2(g["params"], w["params"])[0],
+            "running_max_abs": [max((gr[k] - wr[k]).abs().max().item() for k in wr)
+                                for gr, wr in zip(g["running"], w["running"])],
+            "metrics_max_rel": ((g["metrics"] - w["metrics"]).abs()
+                                / w["metrics"].abs().clamp_min(1e-6)).amax(dim=1).tolist(),
+            "tracked": g["tracked"], "tracked_one_process": w["tracked"],
+            "digest": _digest([g["params"], g["running"][-1]]),
+        }
+    return out
+
+
+def _digest(states) -> str:
+    """sha256 of the tensors of some {name: tensor} dicts, in key order."""
+    h = hashlib.sha256()
+    for state in states:
+        for key in sorted(state):
+            h.update(key.encode())
+            h.update(state[key].detach().float().cpu().contiguous().numpy().tobytes())
+    return h.hexdigest()
+
+
+def _gloo_rank(rank: int, world: int, device, reference: str) -> dict:
+    """One rank of (b), in a process of its own: its PARALLEL_STEPS steps
+    over the gloo group against the one process's (read from `reference`),
+    its launches, and the four train kernels against their plain versions at its shapes
+    (batch AUG_BATCH / world, the config's six warps, both dtypes, and the
+    combine with its backward)."""
+    import torch
+    import torch.distributed as dist
+
+    full_f32()
+    device = torch.device(device)
+    want = torch.load(reference, weights_only=True)
+    t0 = time.perf_counter()
+    got = _parallel_steps(world, rank, device, dist.group.WORLD,
+                          starts={d: w["starts"] for d, w in want.items()})
+    steps_s = time.perf_counter() - t0
+    result = {"rank": rank, "steps_s": steps_s,
+              "launches": {dtype: g["launches"] for dtype, g in got.items()},
+              "step_seconds": {dtype: g["seconds"] for dtype, g in got.items()},
+              "against_one_process": _compare_parallel(got, want),
+              }
+    # the four kernels of the step at this rank's shapes, outside the counted run
+    config, _, _ = _actions(device)
+    B, warps, K1 = AUG_BATCH // world, config_warps(config, HW), \
+        config["model_params"]["common_params"]["num_kp"] + 1
+    gen = torch.Generator().manual_seed(SEED + 15 + rank)
+    errs = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for C, h in warps:
+            src, dout, grids = _warp_train_inputs(B, h, C, dtype, gen, device)
+            errs[f"{dtype}.{C}x{h}"] = _check_warp_train(src, dout, grids,
+                                                         f"actions rank {rank}")
+    result["kernel_max_abs_err"] = {
+        "warp": errs, "combine": combine_backward_phase(device, batch=B, K1=K1,
+                                                        label=f"actions rank {rank}")["max_abs_err"]}
+    return result
+
+
+def parallel_refusals(cmps: list, dtype: str) -> list:
+    """What phase 8 (b) refuses in the ranks' `_compare_parallel` entries of
+    `dtype`: a first update (f32: relative L2 of each network's whole
+    update, from the seed's weights), or a step's running statistics or
+    metrics, further from the one process's than PARALLEL_UPDATE_TOL /
+    PARALLEL_BN_TOL / PARALLEL_METRICS_TOL; or ranks whose parameters and
+    running statistics differ."""
+    out = []
+    for rank, cmp in enumerate(cmps):
+        held = [("update", cmp["network_update_rel_l2"][:1], PARALLEL_UPDATE_TOL.get(dtype)),
+                ("running statistics", cmp["running_max_abs"], PARALLEL_BN_TOL[dtype]),
+                ("metrics", cmp["metrics_max_rel"], PARALLEL_METRICS_TOL[dtype])]
+        for what, gaps, tol in held:
+            out += [f"rank {rank} step {j} {what}: {gap:.4e} > {tol}"
+                    for j, gap in enumerate(gaps) if tol is not None and not gap <= tol]
+    if len({cmp["digest"] for cmp in cmps}) > 1:
+        out.append("the ranks' parameters and running statistics differ")
+    return out
+
+
+def _describe_parallel(cmp: dict) -> str:
+    return ("each step's update "
+            + ", ".join(f"{u:.4e} ({w})" for u, w in zip(cmp["network_update_rel_l2"],
+                                                       cmp["network_update_rel_l2_worst"]))
+            + " by network, "
+            + ", ".join(f"{u:.4e} ({w})" for u, w in zip(cmp["update_rel_l2"],
+                                                       cmp["update_rel_l2_worst"]))
+            + " by sub-module; running statistics "
+            + ", ".join(f"{v:.3e}" for v in cmp["running_max_abs"])
+            + "; metrics " + ", ".join(f"{v:.3e}" for v in cmp["metrics_max_rel"])
+            + f" relative; parameters after the last step {cmp['params_rel_l2']:.4e}")
+
+
+def parallel_reference(work_dir: Path, device="cuda"):
+    """(b)'s one process at batch AUG_BATCH: its run (saved for the ranks
+    under `work_dir`), the file, and the control: the same process from the
+    same starts with each batch's halves swapped, a gap that summation order
+    alone makes at batch 32."""
+    import torch
+
+    want = _parallel_steps(1, 0, torch.device(device))
+    reference = work_dir / "parallel_one_process.pt"
+    torch.save(want, reference)
+    starts = {d: w["starts"] for d, w in want.items()}
+    swapped = _compare_parallel(
+        _parallel_steps(1, 0, torch.device(device), swap=True, starts=starts), want)
+    torch.cuda.empty_cache()
+    return want, reference, swapped
+
+
+def gloo_two_rank_phase(work_dir: Path, smi: str, device="cuda") -> dict:
+    """(b) configs/actions.yaml at full width, the global batch of 32 as two
+    slabs of 16 on two gloo ranks that share the card, PARALLEL_STEPS eager
+    device-fed SGD steps in bf16 and f32, against one process at batch 32
+    (this one). Step j of every run starts from the one process's state
+    before its step j, so each step's update is the gradient of the global
+    batch at one point: `parallel_refusals` holds the first (f32), the running
+    statistics and metrics after it, and the ranks' agreement bit for bit.
+    num_batches_tracked equal. Each
+    rank launches one process's kernels a step and holds them against their
+    plain versions at its shapes. A control that needs no collectives at the
+    ranks' batch of 16 computes another function (the batch norms couple the
+    slabs): scripts/parallel_fault_probe.py reads it as the local_batch_norm
+    fault, refused with the others. gloo stages through the host: its step
+    times say nothing of NCCL across cards."""
+    import torch
+
+    from monkeynet_tpu_torch.parallel.distributed import spawn
+
+    t0 = time.perf_counter()
+    want, reference, swapped = parallel_reference(work_dir, device)
+    one_process_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ranks = spawn(_gloo_rank, ["cuda:0"] * PARALLEL_RANKS, "gloo", args=(str(reference),),
+                  timeout=600)
+    spawn_s = time.perf_counter() - t0
+    config, _, _ = _actions(device)
+    per_step = _step_launches(config)
+    want_launches = {name: v * PARALLEL_STEPS for name, v in per_step.items()}
+    result = {"phase": "parallel_two_gloo_ranks", "config": "configs/actions.yaml",
+              "global_batch": AUG_BATCH, "ranks": PARALLEL_RANKS, "steps": PARALLEL_STEPS,
+              "one_process_launches": {d: w["launches"] for d, w in want.items()},
+              "one_process_step_seconds": {d: w["seconds"] for d, w in want.items()},
+              "ranks_result": ranks, "one_process_swapped_halves": swapped,
+              "one_process_s": one_process_s, "spawn_s": spawn_s,
+              "tol": {"network_update_rel_l2": PARALLEL_UPDATE_TOL,
+                      "running_max_abs": PARALLEL_BN_TOL,
+                      "metrics_max_rel": PARALLEL_METRICS_TOL}, "card": smi}
+    log(result)
+    for dtype, ctl in swapped.items():
+        log(f"parallel (b) {dtype} control, one process with the batch's halves swapped: "
+            + _describe_parallel(ctl))
+    refused = []
+    for dtype in want:
+        refused += [f"{dtype} {why}" for why in parallel_refusals(
+            [r["against_one_process"][dtype] for r in ranks], dtype)]
+    for r in ranks:
+        for dtype, cmp in r["against_one_process"].items():
+            log(f"parallel (b) rank {r['rank']} {dtype} against one process: "
+                + _describe_parallel(cmp) + f"; launches {r['launches'][dtype]}; steps "
+                f"{r['step_seconds'][dtype]:.3f} s (one process {want[dtype]['seconds']:.3f} s) "
+                f"on {smi}")
+            if not cmp["tracked"] == cmp["tracked_one_process"] == [PARALLEL_STEPS]:
+                raise AssertionError(f"parallel (b): num_batches_tracked {cmp['tracked']}, "
+                                     f"one process {cmp['tracked_one_process']}")
+            if r["launches"][dtype] != want_launches:
+                raise AssertionError(f"parallel (b) rank {r['rank']} {dtype}: launches "
+                                     f"{r['launches'][dtype]} != {want_launches}")
+    if refused:
+        raise AssertionError("parallel (b): " + "; ".join(refused))
+    for d, w in want.items():
+        if w["launches"] != want_launches:
+            raise AssertionError(f"parallel (b) one process {d}: {w['launches']}")
+    result["launches"] = ranks[0]["launches"]["bfloat16"]
+    return result
+
+
+@contextlib.contextmanager
+def _eval_devices(devices):
+    """The eval drivers' device lists named as `devices` (the card twice):
+    their `num_devices` counts cards, and one card is present."""
+    import torch
+
+    from monkeynet_tpu_torch.tasks import reconstruction, transfer
+
+    def named(num_devices, device="cuda"):
+        if num_devices != len(devices):
+            raise AssertionError(f"num_devices {num_devices}, devices {devices}")
+        return [torch.device(d) for d in devices]
+
+    saved = reconstruction.local_devices, transfer.local_devices
+    reconstruction.local_devices = transfer.local_devices = named
+    try:
+        yield
+    finally:
+        reconstruction.local_devices, transfer.local_devices = saved
+
+
+def frame_sharded_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict:
+    """(c) Frame-sharded eval over SHARDED_DEVICES on (a)'s last checkpoint
+    (configs/shapes.yaml, f32): the engines on one test video against the
+    unsharded ones (reconstruction's identity recipe and transfer's
+    move_location); reconstruction() and the move_location transfer() with
+    num_devices 2, their launches those of the route for the padded frames
+    split in two slabs, their L1 and PNGs against the unsharded drivers';
+    and the moving-gif demo at 128^2 (random weights) through a sharded
+    KPExtractor and Animator against the unsharded."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from monkeynet_tpu_torch.data.dataset import FramesDataset
+    from monkeynet_tpu_torch.data.io import read_video
+    from monkeynet_tpu_torch.tasks.animate import Animator, KPExtractor, TransferEngine
+    from monkeynet_tpu_torch.tasks.build import build_models
+    from monkeynet_tpu_torch.tasks.reconstruction import load_eval_models, reconstruction
+    from monkeynet_tpu_torch.tasks.transfer import transfer, transfer_one
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    devices = list(SHARDED_DEVICES)
+    n = len(devices)
+    config = load_config(str(REPO / "configs" / "shapes.yaml"))
+    config["dataset_params"]["root_dir"] = str(REPO / "data" / "shapes")
+    config["reconstruction_params"]["num_videos"] = EVAL_VIDEOS - 1
+    config["transfer_params"]["num_pairs"] = EVAL_PAIRS
+    test = FramesDataset(is_train=False, **config["dataset_params"])
+    test.images = test.images[:EVAL_VIDEOS]
+    result = {"phase": "parallel_frame_sharded", "devices": devices, "card": smi,
+              "tol": SHARDED_EVAL_TOL, "max_abs_err": {}, "launches": {}, "seconds": {}}
+
+    def compare(label, got, want):
+        for key in want:
+            if isinstance(want[key], dict):
+                compare(f"{label}.{key}", got[key], want[key])
+                continue
+            err = max_err(torch.as_tensor(got[key]), torch.as_tensor(want[key]))
+            result["max_abs_err"][f"{label}.{key}"] = err
+            check(f"parallel (c) {label}.{key}", err, SHARDED_EVAL_TOL)
+
+    # the engines on one video, sharded against unsharded
+    generator, kp_detector = load_eval_models(config, checkpoint, device)
+    video = torch.as_tensor(test[0]["video"][None], device=device)
+    for label, move in (("reconstruction_engine", False), ("transfer_engine", True)):
+        plain = TransferEngine(generator, kp_detector, move_location=move, device=device)
+        sharded = TransferEngine(generator, kp_detector, move_location=move, devices=devices)
+        compare(label, sharded(video[:, :1], video), plain(video[:, :1], video))
+    compare("kp_extractor", KPExtractor(kp_detector, devices=devices).device_call(video),
+            KPExtractor(kp_detector, device=device).device_call(video))
+    del generator, kp_detector
+
+    # the drivers, sharded (counted) and not
+    def counted(label, want, fn):
+        out, launches, seconds = _counted(label, smi, want, fn)
+        result["launches"][label] = launches
+        result["seconds"][label] = seconds
+        return out
+
+    plain_metrics = reconstruction(config, str(work_dir / "recon_plain"), test, checkpoint,
+                                   device=device)
+    with _eval_devices(devices):
+        # per video: the source once, each slab of the chunk and of the
+        # generated frames through the kp detector, each slab through the
+        # generator
+        metrics = counted("sharded reconstruction",
+                          _route_launches(config, n * EVAL_VIDEOS, (1 + 2 * n) * EVAL_VIDEOS),
+                          lambda: reconstruction(config, str(work_dir / "recon_sharded"), test,
+                                                 checkpoint, device=device, num_devices=n))
+        route_config = dict(config, transfer_params=dict(
+            config["transfer_params"], normalization_params={"move_location": True}))
+        counted("sharded transfer", _route_launches(config, n * EVAL_PAIRS, (1 + n) * EVAL_PAIRS),
+                lambda: transfer(route_config, str(work_dir / "transfer_sharded"), test,
+                                 checkpoint, device=device, num_devices=n))
+    l1_err = abs(metrics["l1"] - plain_metrics["l1"])
+    result["max_abs_err"]["reconstruction.l1"] = l1_err
+    check("parallel (c) reconstruction L1", l1_err, SHARDED_EVAL_TOL)
+    png_err = 0
+    for name in test.images:
+        a, b = (np.asarray(Image.open(work_dir / d / "reconstruction" / "png" / (name + ".png")),
+                           np.int32) for d in ("recon_sharded", "recon_plain"))
+        png_err = max(png_err, int(np.abs(a - b).max()))
+    result["max_abs_err"]["reconstruction.png_levels"] = png_err
+    if png_err > 1:  # frames 1e-5 apart round to the same 8-bit level, or the next
+        raise AssertionError(f"parallel (c): sharded reconstruction PNGs {png_err} levels off")
+    result["metrics"], result["unsharded_metrics"] = metrics, plain_metrics
+    pairs = sorted(os.listdir(work_dir / "transfer_sharded" / "transfer" / "png"))
+    if len(pairs) != EVAL_PAIRS:
+        raise AssertionError(f"parallel (c): sharded transfer wrote {pairs}")
+
+    # the demo at 128^2: a sharded KPExtractor and Animator against unsharded
+    mconfig = load_config(str(REPO / "configs" / "moving-gif.yaml"))
+    generator, kp_detector = build_models(mconfig, device=device, seed=SEED)
+    driving = read_video(str(REPO / "data" / "demo" / "driving.png"), (128, 128, 3))[None]
+    source = read_video(str(REPO / "data" / "demo" / "source.png"), (128, 128, 3))[None, :1]
+    recipe = mconfig["transfer_params"]
+    plain = transfer_one(Animator(generator, device=device),
+                         KPExtractor(kp_detector, device=device), source, driving, recipe)
+    sharded = counted("sharded demo", _route_launches(mconfig, n, 2 * n),
+                      lambda: transfer_one(Animator(generator, devices=devices),
+                                           KPExtractor(kp_detector, devices=devices),
+                                           source, driving, recipe))
+    compare("demo", {k: sharded[k] for k in ("video_prediction", "video_deformed",
+                                              "kp_driving", "kp_source")},
+            {k: plain[k] for k in ("video_prediction", "video_deformed", "kp_driving",
+                                   "kp_source")})
+    del generator, kp_detector
+    result["eval_launches"] = {name: sum(launches[name] for launches in
+                                         result["launches"].values()) for name in _counters()}
+    log(result)
+    log(f"parallel (c): frame-sharded over {devices}: largest gap "
+        f"{max(v for v in result['max_abs_err'].values()):.3e} (limit {SHARDED_EVAL_TOL}); "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in result["seconds"].items()) + f" on {smi}")
+    return result
+
+
+def parallel_phase(work_dir: Path, smi: str, device="cuda") -> dict:
+    """Phase 8: (a) one NCCL rank in the step's graph, (b) two gloo ranks
+    sharing the card at actions width, (c) frame-sharded eval; each
+    sub-phase's seconds."""
+    seconds, t0 = {}, time.perf_counter()
+    nccl = one_rank_nccl_phase(work_dir, smi, device)
+    seconds["a"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    gloo = gloo_two_rank_phase(work_dir, smi, device)
+    seconds["b"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sharded = frame_sharded_phase(nccl["checkpoint"], work_dir, smi, device)
+    seconds["c"] = time.perf_counter() - t0
+    log({"phase": "parallel_seconds", **seconds, "card": smi})
+    return {"nccl": nccl, "gloo": gloo, "frame_sharded": sharded, "seconds": seconds}
+
+
+def parallel_launches(parallel: dict) -> dict:
+    """Phase 8's launches by path: (a) the one-rank NCCL train loop (capture
+    x replays), (b) one gloo rank's bf16 steps, (c) the frame-sharded eval;
+    each kernel of the slice's path must have launched in one of them."""
+    paths = {"nccl_one_rank_loop": parallel["nccl"]["launches"],
+             "gloo_rank_steps": parallel["gloo"]["launches"],
+             "frame_sharded_eval": parallel["frame_sharded"]["eval_launches"]}
+    for name in paths["nccl_one_rank_loop"]:
+        if not any(launches[name] for launches in paths.values()):
+            raise AssertionError(f"phase 8: {name} never launched on the sharded paths")
+    return paths
+
+
 def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
-                 loop_launches: dict, eval_launches: dict, actions_launches: dict) -> dict:
+                 loop_launches: dict, eval_launches: dict, actions_launches: dict,
+                 sharded_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; every path's counts are also
     given under its own name (`train_loop_launches`: the train loop's 64
     steps through the step's CUDA graph, captured launches x replays;
     `eval_launches`: the counted steps of eval_phase; `actions_launches`:
-    phase 7's loop on configs/actions.yaml, 90 steps through the graph).
+    phase 7's loop on configs/actions.yaml, 90 steps through the graph;
+    `parallel_launches`: phase 8's paths, `parallel_launches` above).
     Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
@@ -2521,7 +3257,9 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                "train_launches": train_launches[name],
                "train_loop_launches": loop_launches[name],
                "eval_launches": eval_launches[name],
-               "actions_launches": actions_launches[name]}
+               "actions_launches": actions_launches[name],
+               "parallel_launches": {path: launches[name]
+                                     for path, launches in sharded_launches.items()}}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
@@ -2547,7 +3285,7 @@ def full_f32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-PHASES = ("kernels", "parity", "main", "loop", "dispatch")
+PHASES = ("kernels", "parity", "main", "loop", "dispatch", "parallel")
 
 
 def main(argv=None) -> int:
@@ -2590,6 +3328,7 @@ def main(argv=None) -> int:
                                   train_path(config, "bfloat16")),
             "loop": lambda work: eval_phase(train_loop_phase(work)["checkpoint"], work, smi),
             "dispatch": lambda work: dispatch_phase(work, smi),
+            "parallel": lambda work: parallel_launches(parallel_phase(work, smi)),
         }
         for name in only:
             with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
@@ -2625,12 +3364,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
         dispatch = dispatch_phase(Path(work), smi)
     lap("dispatch")
+    with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
+        sharded = parallel_launches(parallel_phase(Path(work), smi))
+    lap("parallel")
     log({"phase": "seconds", **seconds})
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
     print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
                                   loop["launches"], evals["eval_launches"],
-                                  dispatch["actions"]["launches"])), flush=True)
+                                  dispatch["actions"]["launches"], sharded)), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -130,22 +130,27 @@ def collate_plans(video_idx, plans):
 
 
 def plan_stream(dataset, transform, lengths, batch_size: int, seed: int,
-                start_epoch: int, num_epochs: int, shuffle: bool = True):
+                start_epoch: int, num_epochs: int, num_shards: int = 1,
+                shard_index: int = 0, shuffle: bool = True):
     """Yield (epoch, plan batch) in the order and with the generators of
     data/loader.DataLoader: the (seed + epoch) shuffle, the last partial
     batch dropped, and each item's generator keyed (seed, epoch, batch,
-    position)."""
+    global position). `batch_size` is the local batch: with num_shards > 1
+    each shard takes its slab of each global batch, as the loader does."""
     h, w, _ = dataset.image_shape
     n = len(dataset)
+    global_bs = batch_size * num_shards
     for ep in range(start_epoch, start_epoch + num_epochs):
         order = np.arange(n)
         if shuffle:
             np.random.default_rng(seed + ep).shuffle(order)
-        stop = (n // batch_size) * batch_size
-        for bi, i in enumerate(range(0, stop, batch_size)):
-            idxs = order[i : i + batch_size]
+        stop = (n // global_bs) * global_bs
+        for bi, i in enumerate(range(0, stop, global_bs)):
+            lo = i + shard_index * batch_size
+            idxs = order[lo : lo + batch_size]
             plans = [transform.plan(int(lengths[j]), h, w,
-                                    np.random.default_rng((seed, ep, bi, pos)))
+                                    np.random.default_rng((seed, ep, bi,
+                                                           shard_index * batch_size + pos)))
                      for pos, j in enumerate(idxs)]
             yield ep, collate_plans(idxs, plans)
 

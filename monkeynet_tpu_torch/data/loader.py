@@ -1,10 +1,10 @@
 """Threaded, bounded batch loader and the feeder that stages batches on the card.
 
 Counterpart of monkeynet_tpu/data/loader.py: `collate`, `quantize_feed` and
-`DataLoader` are copies (the loader in one process, without the JAX
-package's shard options), so the port sees the JAX package's batches
+`DataLoader` are copies (with the shard options of data-parallel
+training), so the port sees the JAX package's batches
 exactly (the shuffle keyed by (seed, epoch), the
-per-item RNG by (seed, epoch, batch, position), one persistent worker pool
+per-item RNG by (seed, epoch, batch, global position), one persistent worker pool
 across epochs, and at most `prefetch + num_workers - 1` decoded batches in
 flight: a semaphore gates
 workers before they claim a task, so the in-flight set is always the
@@ -54,7 +54,14 @@ class DataLoader:
     """Batches of `dataset`. The defaults are the train loop's walk:
     shuffled every epoch, the last partial batch dropped. `shuffle=False,
     drop_last=False` walks in order and keeps the last partial batch (the
-    keypoint predictor's windows)."""
+    keypoint predictor's windows).
+
+    batch_size is the local batch. With num_shards > 1 (data-parallel
+    training, one shard a rank) every shard walks the same seed-keyed
+    permutation and takes its contiguous slab, shard_index * batch_size
+    onward, of each global batch of num_shards * batch_size, so the union
+    of the shards' batches is the single-process global batch exactly;
+    `len` counts global batches."""
 
     def __init__(
         self,
@@ -65,8 +72,12 @@ class DataLoader:
         num_workers: int = 4,
         seed: int = 0,
         prefetch: int = 2,
+        num_shards: int = 1,
+        shard_index: int = 0,
         postprocess=None,
     ):
+        if num_shards > 1 and not drop_last:
+            raise ValueError("sharded loading requires drop_last=True")
         self.dataset = dataset
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -74,6 +85,8 @@ class DataLoader:
         self.num_workers = max(1, num_workers)
         self.seed = seed
         self.prefetch = max(1, prefetch)
+        self.num_shards = num_shards
+        self.shard_index = shard_index
         # Applied to each collated batch INSIDE the worker thread (e.g.
         # quantize_feed): batch-level numpy work belongs with decode/augment,
         # not on the consumer thread that keeps the device queue full.
@@ -82,24 +95,29 @@ class DataLoader:
 
     def __len__(self):
         n = len(self.dataset)
-        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        global_bs = self.batch_size * self.num_shards
+        return n // global_bs if self.drop_last else -(-n // global_bs)
 
     def _batch_indices(self, epoch: int):
         n = len(self.dataset)
         order = np.arange(n)
         if self.shuffle:
             np.random.default_rng(self.seed + epoch).shuffle(order)
-        stop = (n // self.batch_size) * self.batch_size if self.drop_last else n
-        for i in range(0, stop, self.batch_size):
-            yield order[i : i + self.batch_size]
+        global_bs = self.batch_size * self.num_shards
+        stop = (n // global_bs) * global_bs if self.drop_last else n
+        for i in range(0, stop, global_bs):
+            lo = i + self.shard_index * self.batch_size
+            yield order[lo : lo + self.batch_size]
 
     def _load_batch(self, epoch: int, bi: int, idxs) -> dict:
         items = []
         for pos, j in enumerate(idxs):
-            # Per-item RNG: keyed by (seed, epoch, batch, position), so the
-            # augmentation stream of one item never depends on its
-            # batchmates or on which worker thread decoded it.
-            rng = np.random.default_rng((self.seed, epoch, bi, pos))
+            # Per-item RNG: keyed by (seed, epoch, batch, global position),
+            # so the augmentation stream of one item never depends on its
+            # batchmates, on which worker thread decoded it, or on how the
+            # global batch is sharded.
+            gpos = self.shard_index * self.batch_size + pos
+            rng = np.random.default_rng((self.seed, epoch, bi, gpos))
             try:
                 items.append(self.dataset.__getitem__(int(j), rng=rng))
             except TypeError:

@@ -23,6 +23,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from monkeynet_tpu_torch.ops.sampling import resize_nearest
+from monkeynet_tpu_torch.parallel.distributed import all_reduce_sum
 
 
 class Conv3D(nn.Module):
@@ -82,9 +83,13 @@ class SyncBatchNorm(nn.Module):
 
     Eval normalises with the running statistics. Train mode computes the
     batch's statistics in f32 (biased variance to normalise, unbiased for the
-    running estimate, torch momentum) on this process only, and gradients
-    flow through the batch mean and variance as in the JAX package; the
-    cross-process reduction comes with data parallelism.
+    running estimate, torch momentum), and gradients flow through the batch
+    mean and variance as in the JAX package. With a process `group` (set by
+    `set_process_group`) the statistics are the global batch's: the sum,
+    the sum of squares and the count are summed over the group in one
+    differentiable all-reduce (the JAX package's psum over its axis), so
+    the running variance is unbiased with the global count and the backward
+    sums the statistics' cotangents over the ranks.
 
     `update_running_stats` False (see `frozen_running_stats`) normalises
     with the batch's statistics as in training but leaves the running ones
@@ -102,6 +107,7 @@ class SyncBatchNorm(nn.Module):
         self.register_buffer("running_var", torch.ones(features))
         self.register_buffer("num_batches_tracked", torch.tensor(0, dtype=torch.long))
         self.update_running_stats = True
+        self.group = None
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         with torch.no_grad():
@@ -116,18 +122,32 @@ class SyncBatchNorm(nn.Module):
             mean, var = self.running_mean, self.running_var
         else:
             xf = x.float().reshape(-1, x.shape[-1])
-            cnt = xf.shape[0]
-            mean = xf.mean(dim=0)
-            var = torch.clamp((xf * xf).mean(dim=0) - mean * mean, min=0.0)
+            s, ss = xf.sum(dim=0), (xf * xf).sum(dim=0)
+            cnt = xf.new_full((), float(xf.shape[0]))
+            if self.group is not None:
+                c = s.shape[0]
+                stats = all_reduce_sum(torch.cat([s, ss, cnt[None]]), self.group)
+                s, ss, cnt = stats[:c], stats[c:2 * c], stats[2 * c]
+            mean = s / cnt
+            var = torch.clamp(ss / cnt - mean * mean, min=0.0)
             if self.update_running_stats:
                 with torch.no_grad():
                     m = self.momentum
-                    unbiased = var * (cnt / max(cnt - 1, 1))
+                    unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
                     self.running_mean.mul_(1.0 - m).add_(m * mean.to(self.running_mean.dtype))
                     self.running_var.mul_(1.0 - m).add_(m * unbiased.to(self.running_var.dtype))
                     self.num_batches_tracked.add_(1)
         inv = torch.rsqrt(var + self.eps)
         return (x - mean.to(x.dtype)) * (inv * self.weight).to(x.dtype) + self.bias.to(x.dtype)
+
+
+def set_process_group(module: nn.Module, group) -> nn.Module:
+    """Reduce the training statistics of every SyncBatchNorm of `module`
+    over `group` (None: this process's batch alone). Returns `module`."""
+    for m in module.modules():
+        if isinstance(m, SyncBatchNorm):
+            m.group = group
+    return module
 
 
 @contextlib.contextmanager

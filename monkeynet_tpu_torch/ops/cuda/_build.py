@@ -11,6 +11,7 @@ needs nvcc.
 from __future__ import annotations
 
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -84,6 +85,18 @@ def build() -> Path:
         return lib
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    # Processes of one run (the ranks of a data-parallel run) build into the
+    # same directory: one builds while the others wait, then load its
+    # library. The OS drops the lock with its holder, so a killed build
+    # leaves none behind.
+    with open(BUILD_DIR / "build.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not lib.exists():
+            _compile(nvcc, lib)
+    return lib
+
+
+def _compile(nvcc: str, lib: Path) -> None:
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         jobs = []
         for name in SOURCES:
@@ -112,7 +125,6 @@ def build() -> Path:
         if link.returncode != 0:
             raise RuntimeError(f"linking {lib.name} failed:\n{link.stdout}")
         os.replace(staged, lib)
-    return lib
 
 
 @functools.lru_cache(maxsize=None)

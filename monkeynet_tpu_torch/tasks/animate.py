@@ -11,16 +11,23 @@ both packages run the same batch shapes. Outputs stay on the device.
 statistics and activations cast, as the JAX package casts its variables);
 keypoint math, the mask softmax and every sampling grid stay f32, and the
 outputs come back f32.
+
+Frame sharding (`devices`, the JAX package's `mesh`): a replica of each
+network is made on each device once, at construction; a chunk is padded to
+a multiple of lcm(16, N) frames, split into N frame slabs, one run on each
+device, and the results are gathered on the first device and trimmed. A
+device may be named more than once (its slabs then share one replica).
 """
 
 from __future__ import annotations
 
 import copy
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from monkeynet_tpu_torch.parallel.mesh import shard_batch
 from monkeynet_tpu_torch.utils.device import require_device
 
 
@@ -68,60 +75,99 @@ def _for_inference(model: torch.nn.Module, device, dtype) -> torch.nn.Module:
     return model
 
 
-class Animator:
+def _replicas(model: torch.nn.Module, devices, dtype) -> List[torch.nn.Module]:
+    """`model` ready for inference on each of `devices`: the first device
+    takes `model` itself, each other distinct device a copy."""
+    made = {}
+    for device in devices:
+        if device not in made:
+            made[device] = _for_inference(copy.deepcopy(model) if made else model, device, dtype)
+    return [made[device] for device in devices]
+
+
+def _on(tree: Dict, device) -> Dict:
+    return {k: v.to(device) for k, v in tree.items()}
+
+
+class _Sharded:
+    """The devices of an engine and its frame granularity, lcm(16, N)."""
+
+    def __init__(self, chunk: int, dtype, device, devices):
+        self.devices = [require_device(d) for d in (devices or [device])]
+        self.device = self.devices[0]
+        self.granularity = int(np.lcm(16, len(self.devices)))
+        self.chunk = -(-chunk // self.granularity) * self.granularity
+        self.dtype = dtype
+
+    def _slabs(self, x) -> List[torch.Tensor]:
+        """x split along its frame axis into one slab a device, each on its
+        device."""
+        return [slab["x"] for slab in self._kp_slabs({"x": x})]
+
+    def _kp_slabs(self, kp: Dict) -> List[Dict]:
+        return shard_batch(kp, self.devices, axis=1)
+
+    def _gather(self, parts, n_valid: int):
+        """The slabs' tensors gathered on the first device, trimmed to
+        `n_valid` frames."""
+        return _cat([p.to(self.device) for p in parts])[:, :n_valid]
+
+
+class Animator(_Sharded):
     """The generator over fixed-size chunks of driving keypoints."""
 
     def __init__(self, generator, chunk: int = 128, dtype: Optional[torch.dtype] = None,
-                 device="cuda"):
-        self.device = require_device(device)
-        self.granularity = 16
-        self.chunk = -(-chunk // self.granularity) * self.granularity
-        self.dtype = dtype
-        self.generator = _for_inference(generator, self.device, dtype)
+                 device="cuda", devices=None):
+        super().__init__(chunk, dtype, device, devices)
+        self.generators = _replicas(generator, self.devices, dtype)
+        self.generator = self.generators[0]
 
     @torch.no_grad()
     def __call__(self, source, kp_driving, kp_source) -> Dict[str, torch.Tensor]:
         """source (B,1,H,W,C); kp dicts (B,D,...) and (B,1,...) ->
-        {'video_prediction', 'video_deformed'}, f32 on the device."""
+        {'video_prediction', 'video_deformed'}, f32 on the (first) device."""
         dev = self.device
         source = torch.as_tensor(source, device=dev)
         if self.dtype is not None:
             source = source.to(self.dtype)
         kp_driving = {k: torch.as_tensor(v, device=dev).float() for k, v in kp_driving.items()}
         kp_source = {k: torch.as_tensor(v, device=dev).float() for k, v in kp_source.items()}
+        sources = [source.to(d) for d in self.devices]
+        kp_sources = [_on(kp_source, d) for d in self.devices]
         d = kp_driving["mean"].shape[1]
         outs = {"video_prediction": [], "video_deformed": []}
         for start in range(0, d, self.chunk):
             part = {k: v[:, start : start + self.chunk] for k, v in kp_driving.items()}
             n_valid = part["mean"].shape[1]
             part = _pad_kp(part, _bucket(n_valid, self.chunk, self.granularity))
-            out = self.generator(source, part, kp_source)
+            slabs = [gen(src, kp, kp_src) for gen, src, kp, kp_src in
+                     zip(self.generators, sources, self._kp_slabs(part), kp_sources)]
             for k in outs:
-                outs[k].append(out[k][:, :n_valid].float())
+                outs[k].append(self._gather([o[k] for o in slabs], n_valid).float())
         return {k: _cat(v) for k, v in outs.items()}
 
 
-class TransferEngine:
+class TransferEngine(_Sharded):
     """The whole transfer pipeline per frame chunk: driving-kp detection,
     the relative move_location normalisation, and generation.
 
     Covers the normalisations that are tensor math (move_location /
     clip_mean, reference transfer.py:42-50); the convex-hull scale and
     covariance adaptations run on the host between a KPExtractor and an
-    Animator (tasks/transfer.py `transfer_one`).
+    Animator (tasks/transfer.py `transfer_one`). Sharded, the source's
+    keypoints and the first driving frame's come from the first device and
+    are copied to the others.
     """
 
     def __init__(self, generator, kp_detector, chunk: int = 128,
                  dtype: Optional[torch.dtype] = None, move_location: bool = True,
-                 clip_mean: bool = False, device="cuda"):
-        self.device = require_device(device)
-        self.granularity = 16
-        self.chunk = -(-chunk // self.granularity) * self.granularity
-        self.dtype = dtype
+                 clip_mean: bool = False, device="cuda", devices=None):
+        super().__init__(chunk, dtype, device, devices)
         self.move_location = move_location
         self.clip_mean = clip_mean
-        self.generator = _for_inference(generator, self.device, dtype)
-        self.kp_detector = _for_inference(kp_detector, self.device, dtype)
+        self.generators = _replicas(generator, self.devices, dtype)
+        self.kp_detectors = _replicas(kp_detector, self.devices, dtype)
+        self.generator, self.kp_detector = self.generators[0], self.kp_detectors[0]
 
     def _normalize(self, kp_chunk, kp_first, kp_source):
         if not self.move_location:
@@ -142,8 +188,9 @@ class TransferEngine:
         if self.dtype is not None:
             source = source.to(self.dtype)
         d = driving.shape[1]
+        sources = [source.to(dev) for dev in self.devices]
         preds, defs, kps, norms = [], [], [], []
-        kp_source = kp_first = None
+        kp_source = kp_sources = kp_firsts = None
         for start in range(0, d, self.chunk):
             frames = driving[:, start : start + self.chunk]
             n_valid = frames.shape[1]
@@ -152,15 +199,20 @@ class TransferEngine:
                 frames = frames.to(self.dtype)
             if kp_source is None:
                 kp_source = self.kp_detector(source)
-            kp_chunk = self.kp_detector(frames)
-            if kp_first is None:
-                kp_first = {k: v[:, :1] for k, v in kp_chunk.items()}
-            kp_norm = self._normalize(kp_chunk, kp_first, kp_source)
-            out = self.generator(source, kp_norm, kp_source)
-            preds.append(out["video_prediction"][:, :n_valid].float())
-            defs.append(out["video_deformed"][:, :n_valid].float())
-            kps.append({k: v[:, :n_valid] for k, v in kp_chunk.items()})
-            norms.append({k: v[:, :n_valid] for k, v in kp_norm.items()})
+                kp_sources = [_on(kp_source, dev) for dev in self.devices]
+            kp_chunks = [det(slab) for det, slab in zip(self.kp_detectors, self._slabs(frames))]
+            if kp_firsts is None:
+                kp_first = {k: v[:, :1] for k, v in kp_chunks[0].items()}
+                kp_firsts = [_on(kp_first, dev) for dev in self.devices]
+            kp_norms = [self._normalize(*args) for args in zip(kp_chunks, kp_firsts, kp_sources)]
+            outs = [gen(*args) for gen, *args in
+                    zip(self.generators, sources, kp_norms, kp_sources)]
+            preds.append(self._gather([o["video_prediction"] for o in outs], n_valid).float())
+            defs.append(self._gather([o["video_deformed"] for o in outs], n_valid).float())
+            kps.append({k: self._gather([c[k] for c in kp_chunks], n_valid)
+                        for k in kp_chunks[0]})
+            norms.append({k: self._gather([c[k] for c in kp_norms], n_valid)
+                          for k in kp_norms[0]})
         return {
             "video_prediction": _cat(preds),
             "video_deformed": _cat(defs),
@@ -170,16 +222,14 @@ class TransferEngine:
         }
 
 
-class KPExtractor:
+class KPExtractor(_Sharded):
     """The keypoint detector over fixed-size chunks of frames."""
 
     def __init__(self, kp_detector, chunk: int = 128, dtype: Optional[torch.dtype] = None,
-                 device="cuda"):
-        self.device = require_device(device)
-        self.granularity = 16
-        self.chunk = -(-chunk // self.granularity) * self.granularity
-        self.dtype = dtype
-        self.kp_detector = _for_inference(kp_detector, self.device, dtype)
+                 device="cuda", devices=None):
+        super().__init__(chunk, dtype, device, devices)
+        self.kp_detectors = _replicas(kp_detector, self.devices, dtype)
+        self.kp_detector = self.kp_detectors[0]
 
     def __call__(self, video) -> Dict[str, np.ndarray]:
         """video (B, D, H, W, C) -> kp dict of numpy (B, D, K, ...)."""
@@ -198,6 +248,7 @@ class KPExtractor:
             part = video[:, start : start + self.chunk]
             n_valid = part.shape[1]
             part = _pad_frames(part, _bucket(n_valid, self.chunk, self.granularity))
-            kp = self.kp_detector(part)
-            outs.append({k: v[:, :n_valid].float() for k, v in kp.items()})
+            kps = [det(slab) for det, slab in zip(self.kp_detectors, self._slabs(part))]
+            outs.append({k: self._gather([kp[k] for kp in kps], n_valid).float()
+                         for k in kps[0]})
         return {k: _cat([o[k] for o in outs]) for k in outs[0]}

@@ -2,7 +2,10 @@
 
 Counterpart of monkeynet_tpu/tasks/build.py: `build_models` gives the
 forward path's generator and keypoint detector in eval mode;
-`build_train_models` gives all three networks in training mode.
+`build_train_models` gives all three networks in training mode. The JAX
+package's `axis_name` has no counterpart here: the Trainer that steps the
+networks sets the process group their batch norms reduce over
+(tasks/train.py).
 """
 
 from __future__ import annotations
@@ -44,7 +47,8 @@ def build_discriminator(config: dict, device="cuda", seed: int = 0) -> Discrimin
 
 def build_train_models(config: dict, device="cuda", seed: int = 0) -> Dict[str, nn.Module]:
     """{'generator', 'discriminator', 'kp_detector'} in training mode on
-    `device`; the generator and the keypoint detector are `build_models`'s."""
+    `device`; the generator and the keypoint detector are `build_models`'s
+    (the discriminator has no batch norm)."""
     generator, kp_detector = build_models(config, device, seed)
     models = {
         "generator": generator,

@@ -28,6 +28,7 @@ from monkeynet_tpu_torch.data.dataset import FramesDataset
 from monkeynet_tpu_torch.data.io import write_gif, write_stacked_png
 from monkeynet_tpu_torch.data.loader import DataLoader
 from monkeynet_tpu_torch.models.prediction import KeypointPredictor
+from monkeynet_tpu_torch.parallel.mesh import local_devices
 from monkeynet_tpu_torch.tasks.animate import Animator, KPExtractor
 from monkeynet_tpu_torch.tasks.reconstruction import load_eval_models, to_numpy
 from monkeynet_tpu_torch.utils.async_write import AsyncWriter
@@ -176,10 +177,12 @@ def predict_keypoints(predictor, kp_init: Dict[str, np.ndarray], prediction_para
     return kp_video
 
 
-def prediction(config, log_dir, checkpoint, device="cuda", seed: int = 0) -> Dict:
+def prediction(config, log_dir, checkpoint, device="cuda", seed: int = 0,
+               num_devices: int = 1) -> Dict:
     """The three phases into `log_dir`/prediction; return {'losses', 'lrs',
     'videos'}: the predictor's loss and rate per epoch and the number of
-    test videos rendered."""
+    test videos rendered. `num_devices` > 1 shards the keypoint extraction
+    and the animation over that many devices; the GRU stays on the first."""
     if checkpoint is None:
         raise ValueError("checkpoint is required for prediction mode")
     device = require_device(device)
@@ -192,9 +195,10 @@ def prediction(config, log_dir, checkpoint, device="cuda", seed: int = 0) -> Dic
     init_frames = prediction_params["init_frames"]
     train_size = prediction_params["train_size"]
 
+    devices = local_devices(num_devices, device)
     generator, kp_detector = load_eval_models(config, checkpoint, device)
-    animate = Animator(generator, device=device)
-    extract_kp = KPExtractor(kp_detector, device=device)
+    animate = Animator(generator, devices=devices)
+    extract_kp = KPExtractor(kp_detector, devices=devices)
     visualizer = Visualizer(**(config.get("visualizer_params") or {}))
 
     # ---- phase 1: keypoints over the train set

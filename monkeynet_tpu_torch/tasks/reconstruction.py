@@ -19,6 +19,7 @@ import numpy as np
 import torch
 
 from monkeynet_tpu_torch.data.io import write_gif, write_stacked_png
+from monkeynet_tpu_torch.parallel.mesh import local_devices
 from monkeynet_tpu_torch.tasks.animate import KPExtractor, TransferEngine
 from monkeynet_tpu_torch.tasks.build import build_models
 from monkeynet_tpu_torch.tasks.metrics import EmbeddingExtractor, aed, akd
@@ -49,11 +50,14 @@ def to_numpy(out: Dict) -> Dict:
 
 
 def reconstruction(config, log_dir, dataset, checkpoint, device="cuda",
-                   aed_variables: Optional[Dict[str, torch.Tensor]] = None) -> Dict[str, float]:
+                   aed_variables: Optional[Dict[str, torch.Tensor]] = None,
+                   num_devices: int = 1) -> Dict[str, float]:
     """Reconstruct the first `reconstruction_params.num_videos` + 1 videos of
     `dataset` (the reference's bound) into `log_dir`/reconstruction; return
     {'l1', 'akd', 'aed'}. `aed_variables`: the frozen embedder's weights
-    (tasks/metrics.py)."""
+    (tasks/metrics.py). `num_devices` > 1 shards each chunk's frames over
+    that many devices (parallel/mesh.py `local_devices`); the embedder
+    stays on the first."""
     if checkpoint is None:
         raise ValueError("checkpoint is required for reconstruction mode")
     device = require_device(device)
@@ -62,11 +66,12 @@ def reconstruction(config, log_dir, dataset, checkpoint, device="cuda",
     os.makedirs(png_dir, exist_ok=True)
 
     image_shape = tuple(config["dataset_params"].get("image_shape", (64, 64, 3)))
+    devices = local_devices(num_devices, device)
     generator, kp_detector = load_eval_models(config, checkpoint, device)
     # Self-reenactment is transfer with the identity normalisation.
-    engine = TransferEngine(generator, kp_detector, move_location=False, device=device)
+    engine = TransferEngine(generator, kp_detector, move_location=False, devices=devices)
     visualizer = Visualizer(**(config.get("visualizer_params") or {}))
-    kp_extractor = KPExtractor(kp_detector, device=device)
+    kp_extractor = KPExtractor(kp_detector, devices=devices)
     embedder = EmbeddingExtractor(
         config, generator,
         embedder=config["reconstruction_params"].get("aed_embedder", "frozen"),

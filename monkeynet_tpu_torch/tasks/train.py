@@ -43,8 +43,22 @@ launching every kernel. For that the optimizers are Adam with
 schedule fills before every step: a Python float would be baked into the
 graph at capture. On the CPU the same method takes eager steps.
 
+Data parallelism (`group`, the counterpart of `axis_name`): each rank of a
+`torch.distributed` group holds a replica of the three networks and takes
+its slab of the global batch. The batch norms sum their statistics over the
+group (models/blocks.py), each loss mean is divided by the group's size so
+that the ranks' objectives add up to the global-batch mean (the JAX
+package's `gmean`, a pmean), the metrics are summed over the group, and
+after the backward each network's gradients are summed over the group in
+one flat all-reduce before its optimizer steps: the sum that shard_map's
+transpose makes of the replicated parameters' cotangents. The networks are
+not wrapped in DistributedDataParallel. Under an NCCL group the collectives
+are captured in the step's CUDA graph with the kernels (the eager warm-up
+steps before the capture create the communicator); a gloo group cannot be
+captured, so on the card its steps are eager (`graph=False`).
+
 The loop around the step (loader, logger, checkpoints, resume) is
-tasks/train_loop.py. Not here yet: data parallelism.
+tasks/train_loop.py.
 """
 
 from __future__ import annotations
@@ -56,8 +70,14 @@ from torch import nn
 from torch.func import functional_call
 from torch.utils.checkpoint import checkpoint
 
-from monkeynet_tpu_torch.models.blocks import frozen_running_stats
+from monkeynet_tpu_torch.models.blocks import frozen_running_stats, set_process_group
 from monkeynet_tpu_torch.ops.cuda import launch_counts
+from monkeynet_tpu_torch.parallel.distributed import (
+    all_reduce_,
+    backend_of,
+    collective_count,
+    group_size,
+)
 from monkeynet_tpu_torch.tasks.animate import split_kp
 from monkeynet_tpu_torch.tasks.losses import (
     discriminator_loss,
@@ -117,9 +137,12 @@ def metric_names(train_params) -> list:
     return generator_loss_names(train_params["loss_weights"]) + discriminator_loss_names()
 
 
-def _gmean(v):
-    """Batch mean of a per-sample loss vector, in f32."""
-    return v.float().mean()
+def _gmean(v, world: int = 1):
+    """This rank's share of the global-batch mean of a per-sample loss
+    vector, in f32: its batch mean over the group's size (the ranks' shares
+    add up to the global mean, as the JAX package's pmean gives it)."""
+    m = v.float().mean()
+    return m if world == 1 else m / world
 
 
 class Trainer:
@@ -129,20 +152,28 @@ class Trainer:
       `device`, put in training mode and updated in place.
     optimizer_factory: parameters -> torch optimizer, used for each network
       in place of the default Adam with its MultiStepLR (no schedule then).
+    group: a torch.distributed process group to take the global-batch step
+      over (each rank passes its slab of the batch). The Trainer is what
+      sets the networks' batch norms to reduce over it (None: this process's
+      batch alone). Every rank builds the same initial weights.
 
     `step` takes one eager step; `run` takes several steps of a stacked
     chunk, through a CUDA graph on the card. `graph_stats` counts what the
     graph did: the eager warm-up steps before its capture, the kernel
-    launches that the capture recorded (the wrappers' counters see a
-    captured launch once, at the capture, and no replay), and the replays.
+    launches and the collectives that the capture recorded (the counters see
+    a captured launch once, at the capture, and no replay), and the
+    replays.
     """
 
     def __init__(self, models: Dict[str, nn.Module], train_params: Dict, device="cuda",
                  steps_per_epoch: int = 1,
-                 optimizer_factory: Optional[Callable] = None):
+                 optimizer_factory: Optional[Callable] = None, group=None):
         self.device = require_device(device)
         self.train_params = train_params
-        self.models = {name: models[name].to(self.device).train() for name in MODEL_NAMES}
+        self.group = group
+        self.world = group_size(group)
+        self.models = {name: set_process_group(models[name].to(self.device).train(), group)
+                       for name in MODEL_NAMES}
         compute_dtype = train_params.get("compute_dtype")
         self.compute_dtype = getattr(torch, compute_dtype) if compute_dtype else None
         self.remat = bool(train_params.get("remat", False))
@@ -161,7 +192,8 @@ class Trainer:
         self._rates = {name: torch.zeros((), device=self.device)
                        for name in self.schedulers if capturable}
         self._graph = None
-        self.graph_stats = {"warmup_steps": 0, "captured": {}, "replays": 0}
+        self.graph_stats = {"warmup_steps": 0, "captured": {}, "captured_collectives": 0,
+                            "replays": 0}
 
     def _cast(self, t):
         if self.compute_dtype is not None and t.is_floating_point():
@@ -231,7 +263,7 @@ class Trainer:
         gen_losses = generator_loss(
             maps_fake, maps_real, generated["video_deformed"], loss_weights
         )
-        gen_means = [_gmean(v) for v in gen_losses]
+        gen_means = [_gmean(v, self.world) for v in gen_losses]
 
         # Discriminator objective on the detached fake.
         kp_disc = split_kp(kp_joined, tp["detach_kp_discriminator"])
@@ -239,10 +271,13 @@ class Trainer:
         maps_fake_d = discriminate(params["discriminator"], fake, kp_disc)
         maps_real_d = discriminate(params["discriminator"], video, kp_disc)
         disc_means = [
-            _gmean(v) for v in discriminator_loss(maps_fake_d, maps_real_d, loss_weights)
+            _gmean(v, self.world)
+            for v in discriminator_loss(maps_fake_d, maps_real_d, loss_weights)
         ]
 
         metrics = torch.stack(gen_means + disc_means)
+        if self.group is not None:
+            metrics = all_reduce_(metrics.detach().clone(), self.group)
         return sum(gen_means) + sum(disc_means), metrics, generated, kp_joined
 
     def _update(self, batch) -> Dict:
@@ -253,6 +288,8 @@ class Trainer:
             optimizer.zero_grad(set_to_none=True)
         loss, metrics, generated, kp_joined = self.objective(batch)
         loss.backward()
+        if self.group is not None:
+            self._sum_gradients()
         for name in MODEL_NAMES:
             optimizer = self.optimizers[name]
             rate = self._rates.get(name)
@@ -271,6 +308,20 @@ class Trainer:
             "video_deformed": generated["video_deformed"].detach(),
             "kp_joined": {k: v.detach() for k, v in kp_joined.items()},
         }
+
+    @torch.no_grad()
+    def _sum_gradients(self) -> None:
+        """Sum each network's gradients over the group: one flat all-reduce
+        a network, the same order on every rank."""
+        for name in MODEL_NAMES:
+            grads = [p.grad for p in self.models[name].parameters() if p.grad is not None]
+            if not grads:
+                continue
+            flat = all_reduce_(torch.cat([g.reshape(-1) for g in grads]), self.group)
+            offset = 0
+            for g in grads:
+                g.copy_(flat[offset:offset + g.numel()].view_as(g))
+                offset += g.numel()
 
     def _load_rates(self) -> None:
         for name, rate in self._rates.items():
@@ -305,8 +356,14 @@ class Trainer:
         the step's augmented 'source' and 'video'). On the card the first
         call captures the step in a CUDA graph, which every later call
         replays; a capture that fails raises. `graph` False, and the CPU,
-        take eager steps.
+        take eager steps. A non-NCCL group cannot be captured: on the card
+        it needs `graph` False, and raises otherwise.
         """
+        if (graph and self.device.type == "cuda" and self.group is not None
+                and backend_of(self.group) != "nccl"):
+            raise ValueError(f"Trainer.run: a {backend_of(self.group)} group's collectives "
+                             "cannot be captured in a CUDA graph; pass graph=False for eager "
+                             "steps")
         stop = len(next(iter(chunk.values()))) if stop is None else stop
         vis_steps = set(vis_steps)
         if self.device.type != "cuda" or not graph:
@@ -387,10 +444,14 @@ class Trainer:
         del saved
         for optimizer in self.optimizers.values():
             optimizer.zero_grad(set_to_none=True)
-        before = launch_counts()
+        before, collectives = launch_counts(), collective_count.collectives
         graph = torch.cuda.CUDAGraph()
+        # With a group, the process group's watchdog thread polls the
+        # events of earlier collectives; in the default 'global' mode that
+        # poll from another thread would invalidate the capture.
+        mode = "global" if self.group is None else "thread_local"
         try:
-            with torch.cuda.graph(graph):
+            with torch.cuda.graph(graph, capture_error_mode=mode):
                 out = body()
         except RuntimeError as e:
             raise RuntimeError(
@@ -400,6 +461,7 @@ class Trainer:
         after = launch_counts()
         self.graph_stats["warmup_steps"] += GRAPH_WARMUP_STEPS
         self.graph_stats["captured"] = {k: after[k] - before[k] for k in after}
+        self.graph_stats["captured_collectives"] = collective_count.collectives - collectives
         return static, graph, out
 
     def _snapshot(self):

@@ -27,6 +27,18 @@ Resume follows the reference and the JAX package: a checkpoint holds the
 epoch that last finished and the last logged iteration, and the resumed run
 starts at that epoch, so it trains that epoch again
 (tests/test_e2e.py::test_resume_from_checkpoint pins this in the JAX package).
+
+Data parallelism (`num_devices` > 1, or a process `group`): one process a
+device, each loading only its slab of every global batch (the loader and
+`plan_stream` sharded, the item generators keyed by the global position)
+and taking the global-batch step (tasks/train.py `Trainer` with the group).
+Under torchrun the call joins the group its environment describes;
+otherwise it spawns the ranks itself on the first N cards (NCCL), or on the
+CPU (gloo) for device='cpu'. Every rank draws the same initial weights from
+the seed, and one all-reduced checksum checks that the replicas agree. Rank
+0 alone writes log.txt, the train-vis gifs (of the whole global batch,
+gathered from the ranks) and the checkpoints; since the state is
+replicated, a checkpoint of any world size resumes into any other.
 """
 
 from __future__ import annotations
@@ -38,6 +50,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from monkeynet_tpu_torch.data.device_feed import (
     PLAN_KEYS,
@@ -49,6 +62,15 @@ from monkeynet_tpu_torch.data.device_feed import (
     plan_stream,
 )
 from monkeynet_tpu_torch.data.loader import DataLoader, DevicePrefetch, quantize_feed
+from monkeynet_tpu_torch.parallel.distributed import (
+    all_gather_cat,
+    all_reduce_,
+    group_rank,
+    group_size,
+    maybe_initialize_distributed,
+    spawn,
+)
+from monkeynet_tpu_torch.parallel.mesh import local_devices
 from monkeynet_tpu_torch.tasks.animate import split_kp
 from monkeynet_tpu_torch.tasks.build import build_train_models
 from monkeynet_tpu_torch.tasks.train import Trainer, largest_divisor_leq, metric_names
@@ -83,17 +105,39 @@ class TrainRun:
 
 
 def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
-          profile_dir=None, device="cuda") -> TrainRun:
+          profile_dir=None, device="cuda", group=None) -> TrainRun:
     """Train the three networks of `config` on `dataset` for
     `train_params.num_epochs` epochs (less the epochs a checkpoint has
     done), logging and checkpointing into `log_dir`. Runs on the card unless
-    `device` says otherwise."""
+    `device` says otherwise.
+
+    num_devices > 1 trains data-parallel over that many ranks: under
+    torchrun this process is one of them; otherwise the call spawns them
+    and returns rank 0's run without its trainer (its state is in the
+    checkpoints). `group`: the process group this process is a rank of
+    (this rank's device is `device`); a group of one rank takes the sharded
+    path too."""
     device = require_device(device)
-    if num_devices > 1:
-        raise NotImplementedError(
-            "data-parallel training is not ported yet (ROADMAP item 5); use num_devices=1"
-        )
     train_params = config["train_params"]
+    batch_size = train_params["batch_size"]
+    if num_devices > 1 and batch_size % num_devices:
+        raise ValueError(f"batch_size {batch_size} must be divisible by num_devices "
+                         f"{num_devices} for data-parallel training")
+    if group is None and maybe_initialize_distributed():
+        group = dist.group.WORLD
+        if device.type == "cuda" and device.index is None:
+            device = torch.device("cuda", torch.cuda.current_device())
+    if group is None and num_devices > 1:
+        devices = local_devices(num_devices, device)
+        runs = spawn(_train_rank, devices, "gloo" if device.type == "cpu" else "nccl",
+                     args=(config, log_dir, dataset, checkpoint, seed, profile_dir))
+        return runs[0]
+    rank, world = group_rank(group), group_size(group)
+    if num_devices > 1 and num_devices != world:
+        raise ValueError(f"num_devices {num_devices}, but the process group has {world} ranks")
+    if batch_size % world:
+        raise ValueError(f"batch_size {batch_size} must be divisible by the {world} ranks of "
+                         "the process group")
     image_shape = tuple(config["dataset_params"].get("image_shape", (64, 64, 3)))
 
     # uint8 feed: quantized in the loader workers, rescaled by the step on
@@ -101,18 +145,25 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
     feed_uint8 = train_params.get("feed_dtype", "float32") == "uint8"
     loader = DataLoader(
         dataset,
-        batch_size=train_params["batch_size"],
+        batch_size=batch_size // world,
         num_workers=int(train_params.get("num_workers", 2)),
         seed=seed,
+        num_shards=world,
+        shard_index=rank,
         postprocess=quantize_feed if feed_uint8 else None,
     )
     steps_per_epoch = max(1, len(loader))
-    trainer = Trainer(build_train_models(config, device=device, seed=seed), train_params,
-                      device=device, steps_per_epoch=steps_per_epoch)
+    trainer = Trainer(build_train_models(config, device=device, seed=seed),
+                      train_params, device=device, steps_per_epoch=steps_per_epoch,
+                      group=group)
+    if group is not None:
+        _check_replicas(trainer, group)
+    if rank != 0:
+        profile_dir = None
 
     start_epoch, it = 0, 0
     if checkpoint is not None:
-        loaded = load_checkpoint(checkpoint)
+        loaded = load_checkpoint(checkpoint, group=group)
         trainer.load_state_dict(loaded)
         start_epoch = int(loaded.get("epoch", 0))
         it = int(loaded.get("it", 0))
@@ -131,8 +182,8 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
             if train_params.get("device_feed", False) else None)
     if feed is not None:
         augment, lengths, cache_bytes, cache_s = feed
-        stream = plan_stream(dataset, dataset.transform, lengths, train_params["batch_size"],
-                             seed, start_epoch, num_epochs)
+        stream = plan_stream(dataset, dataset.transform, lengths, batch_size // world,
+                             seed, start_epoch, num_epochs, num_shards=world, shard_index=rank)
         keys = PLAN_KEYS
     else:
         augment, cache_bytes, cache_s = None, 0, 0.0
@@ -146,7 +197,7 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
     epochs, steps, last_metrics = [], 0, None
     t0 = time.perf_counter()
     with Logger(log_dir=log_dir, visualizer_params=config.get("visualizer_params"),
-                **log_params) as logger:
+                write=rank == 0, **log_params) as logger:
         epoch_steps = 0
         last_finished = start_epoch - 1
         payload = trainer.state_dict  # called only when a checkpoint is written
@@ -171,7 +222,7 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
                 logger.log_chunk(
                     it, names, metrics, b - a,
                     vis=lambda j, a=a, host=host, visuals=visuals: _vis(
-                        None if augment is not None else host, a + j, visuals[a + j]),
+                        None if augment is not None else host, a + j, visuals[a + j], group),
                 )
                 metrics = visuals = None
                 it += b - a
@@ -189,9 +240,34 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         wall_s = time.perf_counter() - t0
+    if group is not None:  # rank 0's files are complete when any rank returns
+        dist.barrier(group=group)
     return TrainRun(trainer, epochs, steps, wall_s, chunks.wait_s, steps_per_dispatch=k,
                     device_feed=feed is not None, cache_bytes=cache_bytes, cache_s=cache_s,
                     last_metrics=last_metrics)
+
+
+def _train_rank(rank, world, device, config, log_dir, dataset, checkpoint, seed, profile_dir):
+    """One rank of a spawned data-parallel train(): its run, without the
+    trainer and with the last metrics on the CPU."""
+    run = train(config, log_dir, dataset, checkpoint=checkpoint, seed=seed, num_devices=world,
+                profile_dir=profile_dir, device=device, group=dist.group.WORLD)
+    last = None if run.last_metrics is None else run.last_metrics.cpu()
+    return dataclasses.replace(run, trainer=None, last_metrics=last)
+
+
+@torch.no_grad()
+def _check_replicas(trainer, group) -> None:
+    """Raise unless every rank holds the same initial state: one all-reduce
+    (max) of [checksum, -checksum] over the group, so max == min."""
+    flat = torch.cat([t.detach().double().reshape(-1) for model in trainer.models.values()
+                      for t in model.state_dict().values() if t.is_floating_point()])
+    where = torch.arange(flat.numel(), device=flat.device, dtype=torch.float64) / flat.numel()
+    sums = torch.stack([flat.sum(), (flat * flat).sum(), (flat * where).sum()])
+    both = all_reduce_(torch.cat([sums, -sums]), group, op=dist.ReduceOp.MAX).cpu()
+    if not torch.equal(both[:3], -both[3:]):
+        raise RuntimeError(f"data-parallel train: the ranks' initial weights differ (checksums "
+                           f"from {(-both[3:]).tolist()} to {both[:3].tolist()})")
 
 
 def _device_feed(train_params, dataset, image_shape, device):
@@ -265,21 +341,33 @@ def _cuts(eps, it: int, epoch_steps: int, steps_per_epoch: int, cpk_freq: int, p
     return sorted(cuts)
 
 
-def _vis(host, j: int, out):
+def _vis(host, j: int, out, group=None):
     """The train-vis gif's inputs as numpy in [0, 1] and the step's outputs
     with the keypoints split into source and driving. The inputs are step
     j of the host chunk (a uint8 feed undone), or with the device feed
-    (`host` None) the augmented batch the step made on the card. Called at
-    log boundaries only: it waits on the card."""
+    (`host` None) the augmented batch the step made on the card. With a
+    process group, every rank calls it and each array is the global batch,
+    gathered from the ranks' slabs. Called at log boundaries only: it waits
+    on the card."""
+    device = out["video_prediction"].device
     if host is None:
-        inp = {k: out[k].float().cpu().numpy() for k in ("source", "video")}
+        inp = {k: out[k] for k in ("source", "video")}
     else:
-        inp = {k: host[k][j].astype("float32") / 255.0 if host[k].dtype == "uint8"
-               else host[k][j] for k in ("source", "video")}
+        inp = {k: torch.from_numpy(host[k][j].astype("float32") / 255.0
+                                   if host[k].dtype == "uint8" else host[k][j])
+               for k in ("source", "video")}
+
+    def fetch(t):
+        t = t.float()
+        if group is not None:
+            t = all_gather_cat(t.to(device), group)
+        return t.cpu().numpy()
+
     kps = split_kp(out["kp_joined"], False)
-    vis_out = {k: out[k].float().cpu().numpy() for k in ("video_prediction", "video_deformed")}
-    for group, kp in kps.items():
-        vis_out[group] = {k: v.float().cpu().numpy() for k, v in kp.items()}
+    inp = {k: fetch(v) for k, v in inp.items()}
+    vis_out = {k: fetch(out[k]) for k in ("video_prediction", "video_deformed")}
+    for name, kp in kps.items():
+        vis_out[name] = {k: fetch(v) for k, v in kp.items()}
     return inp, vis_out
 
 

@@ -24,6 +24,7 @@ import numpy as np
 
 from monkeynet_tpu_torch.data.dataset import PairedDataset
 from monkeynet_tpu_torch.data.io import write_gif, write_stacked_png
+from monkeynet_tpu_torch.parallel.mesh import local_devices
 from monkeynet_tpu_torch.tasks.animate import Animator, KPExtractor, TransferEngine
 from monkeynet_tpu_torch.tasks.reconstruction import load_eval_models, to_numpy
 from monkeynet_tpu_torch.utils.async_write import AsyncWriter
@@ -94,9 +95,10 @@ def transfer_one(animate: Animator, extract_kp: KPExtractor, source_image, drivi
     return out
 
 
-def transfer(config, log_dir, dataset, checkpoint, device="cuda") -> int:
+def transfer(config, log_dir, dataset, checkpoint, device="cuda", num_devices: int = 1) -> int:
     """Animate `transfer_params.num_pairs` pairs of `dataset` into
-    `log_dir`/transfer; return the number of pairs written."""
+    `log_dir`/transfer; return the number of pairs written. `num_devices`
+    > 1 shards each chunk's frames over that many devices."""
     if checkpoint is None:
         raise ValueError("checkpoint is required for transfer mode")
     device = require_device(device)
@@ -106,6 +108,7 @@ def transfer(config, log_dir, dataset, checkpoint, device="cuda") -> int:
 
     transfer_params = config["transfer_params"]
     pairs = PairedDataset(dataset, transfer_params["num_pairs"])
+    devices = local_devices(num_devices, device)
     generator, kp_detector = load_eval_models(config, checkpoint, device)
     visualizer = Visualizer(**(config.get("visualizer_params") or {}))
     fmt = transfer_params.get("format", ".gif")
@@ -116,10 +119,10 @@ def transfer(config, log_dir, dataset, checkpoint, device="cuda") -> int:
     if device_norm_ok:
         engine = TransferEngine(generator, kp_detector,
                                 move_location=norm.get("move_location", False),
-                                clip_mean=norm.get("clip_mean", False), device=device)
+                                clip_mean=norm.get("clip_mean", False), devices=devices)
     else:
-        animate = Animator(generator, device=device)
-        extract_kp = KPExtractor(kp_detector, device=device)
+        animate = Animator(generator, devices=devices)
+        extract_kp = KPExtractor(kp_detector, devices=devices)
 
     with AsyncWriter(name="monkeynet-transfer-vis") as writer:
         for it in range(len(pairs)):

@@ -9,6 +9,11 @@ checkpoint files every `cpk_freq_epoch` epochs and on exit.
 The loss values of each step stay on the device until a log boundary, where
 they come to the host in one copy: the loop never waits on the card between
 boundaries.
+
+In data-parallel training every rank keeps a Logger, and only one (rank 0)
+is told to write (`write=True`); the others keep its count of iterations
+and epochs, write no file, and still call the `vis` callables at the log
+boundaries, since those gather the ranks' samples.
 """
 
 from __future__ import annotations
@@ -35,12 +40,16 @@ class Logger:
         cpk_freq_epoch: int = 100,
         zfill_num: int = 8,
         visualizer_params: Optional[dict] = None,
+        write: bool = True,
     ):
         self.loss_list: List = []
+        self.write = write
         self.cpk_dir = log_dir
         self.visualizations_dir = os.path.join(log_dir, "train-vis")
-        os.makedirs(self.visualizations_dir, exist_ok=True)
-        self.log_file = open(os.path.join(log_dir, log_file_name), "a")
+        self.log_file = None
+        if write:
+            os.makedirs(self.visualizations_dir, exist_ok=True)
+            self.log_file = open(os.path.join(log_dir, log_file_name), "a")
         self.log_freq = log_freq_iter
         self.cpk_freq = cpk_freq_epoch
         self.zfill_num = zfill_num
@@ -57,6 +66,10 @@ class Logger:
 
     # ---------------------------------------------------------------- scores
     def log_scores(self, loss_names):
+        if not self.write:
+            self.loss_list = []
+            self._steps_since_log = 0
+            return
         # One device-to-host copy for all the steps since the last line:
         # rows lo .. hi - 1 of each chunk's (k, M) stack.
         rows = torch.cat([torch.as_tensor(values)[lo:hi]
@@ -94,7 +107,7 @@ class Logger:
         self.payload = payload
 
     def save_cpk(self, is_exit: bool = False):
-        if self.payload is None:
+        if self.payload is None or not self.write:
             return
         # The payload may be a zero-arg callable: the loop passes one, so the
         # state is copied to the host only on epochs that checkpoint.
@@ -122,7 +135,8 @@ class Logger:
     def __exit__(self, exc_type, exc_val, exc_tb):
         if self.payload is not None:
             self.save_cpk(is_exit=True)
-        self.log_file.close()
+        if self.log_file is not None:
+            self.log_file.close()
         if self._writer is None:
             return
         if exc_type is not None:
@@ -161,7 +175,9 @@ class Logger:
             self.it = boundary
             self.log_scores(names)
             if vis is not None:
-                self.visualize_rec(*vis(j))
+                drawn = vis(j)
+                if self.write:
+                    self.visualize_rec(*drawn)
             boundary += self.log_freq
         if cursor < nsteps:
             self.loss_list.append((values, cursor, nsteps))

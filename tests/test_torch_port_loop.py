@@ -269,10 +269,15 @@ def test_resume_without_scheduler_state_takes_the_adam_step(runs):
 
 
 def test_train_refuses_missing_cuda_and_several_devices(runs, monkeypatch):
+    """More devices than the cards present raises and names both counts
+    (on a machine whose CUDA check answers yes, with one card); no card at
+    all raises before anything else."""
     config = runs["config"]
     dataset = TFramesDataset(is_train=True, **config["dataset_params"])
-    with pytest.raises(NotImplementedError, match="ROADMAP item 5"):
-        tloop.train(config, runs["dirs"]["port"], dataset, num_devices=2, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="requested 2 devices but only 1"):
+        tloop.train(config, runs["dirs"]["port"], dataset, num_devices=2)
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tloop.train(config, runs["dirs"]["port"], dataset)
