@@ -94,13 +94,25 @@ Phases, each of which raises on failure:
      held against their plain versions at its shapes; (c) frame-sharded eval
      over the card named twice on (a)'s checkpoint: the engines,
      reconstruction() and the move_location transfer() against the
-     unsharded ones, and the moving-gif demo at 128^2, launches counted.
+     unsharded ones, and the moving-gif demo at 128^2, launches counted;
+  9. the JAX package's msgpack checkpoint (jaxckpt_phase), the committed
+     tests/fixtures/jax_train_checkpoint.msgpack (the JAX train() at the
+     tests' tiny widths, 64^2): (a) into a Trainer on the card, every tensor
+     bit for bit against the decoded file (parameters, batch statistics,
+     Adam moments and steps), the rate at the JAX schedule's value at the
+     file's count, one eager step at it; (b) reconstruction() from the file
+     over 2 test videos of data/shapes on the card and on the CPU, launches
+     counted, frames compared; (c) train() resumed from the file on the
+     config's path (the device feed, the step's CUDA graph), launches as
+     capture x replays, rows from the file's `it`, Adam steps and rates
+     after; (d) the command lines of the dataset tools, bg_removal and the
+     user study, each in a process of its own.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, where CUDA is missing or where the
 repository is not beside it. It imports nothing of JAX. `--only PHASE ...`
-(kernels, parity, main, loop, dispatch, parallel) runs only those phases
+(kernels, parity, main, loop, dispatch, parallel, jaxckpt) runs only those phases
 after the build and prints no result line.
 """
 
@@ -112,6 +124,7 @@ import json
 import math
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -945,28 +958,30 @@ def shapes_train_shapes(config) -> tuple:
     return config["train_params"]["batch_size"], config_warps(config, HW), K1
 
 
-def loop_kernel_phase(device) -> dict:
+def loop_kernel_phase(device, config=None, label="shapes") -> dict:
     """The four kernels of the train loop (train_loop_phase) at the shapes
-    its steps give them, configs/shapes.yaml at batch 16: the warp's
-    forward, d_src and d_grid at each of the six warps (C = 3, 32, 64, 128,
-    128, 128 over 64^2 ... 2^2) on a random and an identity grid, in f32
-    (the loop's dtype) and bf16, with their plans and L2-warm times; the
-    combine and its backward at K1 = 5."""
+    its steps give them, configs/shapes.yaml at batch 16 (or `config`'s
+    train step at 64^2): the warp's forward, d_src and d_grid at each of the
+    six warps (C = 3, 32, 64, 128, 128, 128 over 64^2 ... 2^2) on a random
+    and an identity grid, in f32 (the loop's dtype) and bf16, with their
+    plans and L2-warm times; the combine and its backward at K1 = 5."""
     import torch
 
     from monkeynet_tpu_torch.ops.cuda import warp
     from monkeynet_tpu_torch.utils.config import load_config
 
-    B, warps, K1 = shapes_train_shapes(load_config(str(REPO / "configs" / "shapes.yaml")))
+    if config is None:
+        config = load_config(str(REPO / "configs" / "shapes.yaml"))
+    B, warps, K1 = shapes_train_shapes(config)
     gen = torch.Generator().manual_seed(SEED + 13)
     rows = []
     for dtype in (torch.float32, torch.bfloat16):
         for C, h in warps:
             src, dout, grids = _warp_train_inputs(B, h, C, dtype, gen, device)
             grid, shape = grids["random"], tuple(src.shape)
-            row = {"kernel": "warp fwd/d_src/d_grid", "config": "shapes", "dtype": str(dtype),
+            row = {"kernel": "warp fwd/d_src/d_grid", "config": label, "dtype": str(dtype),
                    "shape": list(shape),
-                   "max_abs_err": _check_warp_train(src, dout, grids, "shapes"),
+                   "max_abs_err": _check_warp_train(src, dout, grids, label),
                    "fwd_plan": warp.warp_plan(B, h * h, C, dtype, True, h * h)._asdict(),
                    "dsrc_plan": warp.dsrc_plan(B, h * h, C, dtype, True, (h, h))._asdict(),
                    "dgrid_plan": warp.dgrid_plan(B, h * h, C, dtype, True, h * h)._asdict(),
@@ -975,8 +990,8 @@ def loop_kernel_phase(device) -> dict:
                    "dgrid_ms": time_ms(lambda: warp.warp_dgrid(src, grid, dout))}
             log(row)
             rows.append(row)
-    combine_row = combine_backward_phase(device, batch=B, K1=K1, label="shapes")
-    return {"phase": "loop_kernels", "warp_rows": rows, "combine": combine_row}
+    combine_row = combine_backward_phase(device, batch=B, K1=K1, label=label)
+    return {"phase": "loop_kernels", "config": label, "warp_rows": rows, "combine": combine_row}
 
 
 def eval_chunks() -> list:
@@ -998,20 +1013,71 @@ def eval_chunks() -> list:
              _bucket(demo_frames, CHUNK))]
 
 
-def eval_kernel_phase(device) -> dict:
-    """The warp forward and the combine at the eval paths' chunks
-    (eval_chunks, batch 1): the warp at each encoder skip on a grid near the
-    identity and on the identity grid, f32 and bf16, with the plans and
-    L2-warm times; the combine at the dense motion's size and num_kp + 1
-    masks, f32; each against its plain version at kernel_phase's
-    tolerances."""
+def _kp_kernel_checks(label, config, size, frames, gen, device) -> list:
+    """The soft-argmax and the heatmap at an eval chunk of `frames` on
+    size^2 frames and at the source frame (f32, batch 1), at the shapes and
+    settings the config's kp detector and movement embeddings give them:
+    the soft-argmax against its plain version with the temperature as a
+    0-dim tensor (softargmax_phase), the heatmap against its plain version
+    on the CPU (heatmap_phase), at those phases' tolerances."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import heatmap, softargmax
+
+    mp = config["model_params"]
+    K, variance = mp["common_params"]["num_kp"], mp["common_params"]["kp_variance"]
+    kpp, gp = mp["kp_detector_params"], mp["generator_params"]
+    dm = gp["dense_motion_params"]
+    h = int(size * kpp.get("scale_factor", 1))
+    temperature = torch.tensor(kpp["temperature"], device=device)
+    # each embedding that renders heatmaps: its size and norm_const; a
+    # 'difference' one renders the source's keypoints too
+    embeddings = [(e, scale * e.get("scale_factor", 1)) for e, scale in
+                  ((dm["mask_embedding_params"], dm.get("scale_factor", 1)),
+                   (gp.get("kp_embedding_params"), 1)) if e and e.get("use_heatmap", True)]
+    rows = []
+    for D in (frames, 1):
+        logits = torch.randn(1, D, h, h, K, generator=gen).to(device)
+        err = max_err(softargmax.softargmax_stats(logits, kpp["temperature"]),
+                      softargmax.softargmax_plain(logits, temperature))
+        check(f"softargmax {label} {list(logits.shape)}", err, 1e-5)
+        rows.append({"kernel": "softargmax", "config": label, "shape": list(logits.shape),
+                     "variant": softargmax.softargmax_plan(h, h, K, logits.dtype).variant,
+                     "max_abs_err": err, "tol": 1e-5})
+        mean = 1.8 * torch.rand(1, D, K, 2, generator=gen) - 0.9
+        a = 0.1 * torch.randn(1, D, K, 2, 2, generator=gen)
+        kp = {"mean": mean, "var": a @ a.transpose(-1, -2) + 0.005 * torch.eye(2)}
+        if variance == "single":
+            kp["var"] = 0.005 + 0.02 * torch.rand(1, D, K, 1, 1, generator=gen)
+        elif not isinstance(variance, str):
+            del kp["var"]
+        for e, scale in embeddings:
+            hw, norm = (int(size * scale),) * 2, e.get("norm_const", "sum")
+            got = heatmap.heatmap({k: v.to(device) for k, v in kp.items()}, hw, variance, norm)
+            err = max_err(got.cpu(), heatmap.heatmap_plain(kp, hw, variance, norm))
+            check(f"heatmap {label} {list(got.shape)} {norm}", err, 1e-6)
+            rows.append({"kernel": "heatmap", "config": label, "shape": list(got.shape),
+                         "norm_const": norm, "max_abs_err": err, "tol": 1e-6})
+    for row in rows:
+        log(row)
+    return rows
+
+
+def eval_kernel_phase(device, chunks=None) -> dict:
+    """The forward kernels at the eval paths' chunks (eval_chunks, or
+    `chunks` of (label, config, size, frames); batch 1): the warp at each
+    encoder skip on a grid near the identity and on the identity grid, f32
+    and bf16, with the plans and L2-warm times; the combine at the dense
+    motion's size and num_kp + 1 masks, f32; the soft-argmax and the
+    heatmap (_kp_kernel_checks); each against its plain version at
+    kernel_phase's tolerances."""
     import torch
 
     from monkeynet_tpu_torch.ops.cuda import combine, warp
 
     gen = torch.Generator().manual_seed(SEED + 14)
-    result = {"phase": "eval_kernels", "warp": [], "combine": []}
-    for label, config, size, frames in eval_chunks():
+    result = {"phase": "eval_kernels", "warp": [], "combine": [], "kp": []}
+    for label, config, size, frames in chunks or eval_chunks():
         shapes = config_warps(config, size)
         for dtype, tol_of in ((torch.float32, lambda ref: 1e-5),
                               (torch.bfloat16, lambda ref: 2.0**-8 * ref.abs().max().item())):
@@ -1042,6 +1108,7 @@ def eval_kernel_phase(device) -> dict:
                "max_abs_err": err, "kernel_ms": time_ms(lambda: combine.combine(logits, diff, corr))}
         log(row)
         result["combine"].append(row)
+        result["kp"] += _kp_kernel_checks(label, config, size, frames, gen, device)
     return result
 
 
@@ -1460,12 +1527,16 @@ def _same_state(a, b, where: str) -> int:
 
 
 def _step_launches(config) -> dict:
-    """Kernel launches of one train step of `config`: TRAIN_STEP_LAUNCHES,
-    plus one warp where its augmentation rotates on the card (the device
-    feed warps the batch's frames once)."""
+    """Kernel launches of one train step of `config`: a warp and a d_grid per
+    encoder skip of its generator (num_blocks + 1), a d_src for each but the
+    raw source frame's, one combine (TRAIN_STEP_LAUNCHES at 5 blocks); plus
+    one warp where its augmentation rotates on the card (the device feed
+    warps the batch's frames once)."""
+    blocks = config["model_params"]["generator_params"]["num_blocks"]
     rotates = bool(config["train_params"].get("device_feed")) and \
         "rotation_param" in config["dataset_params"].get("augmentation_params", {})
-    return dict(TRAIN_STEP_LAUNCHES, warp=TRAIN_STEP_LAUNCHES["warp"] + rotates)
+    return dict(TRAIN_STEP_LAUNCHES, warp=blocks + 1 + rotates, warp_dsrc=blocks,
+                warp_dgrid=blocks + 1)
 
 
 def _graph_launches(label: str, trainer, counted: dict, per_step: dict, steps: int) -> dict:
@@ -1831,6 +1902,42 @@ def _expect_files(directory: Path, names, fmt: str, label: str) -> None:
             raise AssertionError(f"{label}: {path} is empty")
 
 
+def eval_parity(config, checkpoint: str, cases: dict, label: str, device="cuda") -> dict:
+    """The card against the CPU from one checkpoint (load_eval_models on
+    both devices), each case {name: (source, driving, normalization
+    recipe)} stage by stage: the keypoints (and the normalised ones) to
+    their tolerances, then the generator on both devices from the card's
+    keypoints to PARITY_OUT_TOL, and the chained outputs to CHAINED_OUT_TOL
+    (PARITY_OUT_TOL does not cover a keypoint gap carried to a hard edge)."""
+    import torch
+
+    from monkeynet_tpu_torch.tasks.animate import Animator, KPExtractor
+    from monkeynet_tpu_torch.tasks.reconstruction import load_eval_models, to_numpy
+    from monkeynet_tpu_torch.tasks.transfer import transfer_one
+
+    models = {dev: load_eval_models(config, checkpoint, device=dev) for dev in ("cpu", device)}
+    parity = {}
+    for name, (source, driving, norm) in cases.items():
+        chain = {dev: transfer_one(Animator(gen, device=dev), KPExtractor(kp, device=dev),
+                                   source, driving, {"normalization_params": norm})
+                 for dev, (gen, kp) in models.items()}
+        card = chain[device]
+        same_kp = to_numpy(Animator(models["cpu"][0], device="cpu")(
+            source, card["kp_norm"], card["kp_source"]))
+        errs = parity_errors(card, dict(chain["cpu"], **same_kp), f"{label} {name}")
+        errs["kp_norm.mean"] = max_err(torch.as_tensor(card["kp_norm"]["mean"]),
+                                       torch.as_tensor(chain["cpu"]["kp_norm"]["mean"]))
+        check(f"{label} {name} kp_norm.mean", errs["kp_norm.mean"], KP_NORM_TOL)
+        for key in ("video_prediction", "video_deformed"):
+            errs[f"chained.{key}"] = max_err(torch.as_tensor(card[key]),
+                                             torch.as_tensor(chain["cpu"][key]))
+            check(f"{label} {name} chained {key}", errs[f"chained.{key}"], CHAINED_OUT_TOL)
+        parity[name] = errs
+    return {"max_abs_err": parity,
+            "tol": dict(PARITY_OUT_TOL, **{"kp_norm.mean": KP_NORM_TOL,
+                                           "chained": CHAINED_OUT_TOL})}
+
+
 def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict:
     """The eval drivers on the train loop's last checkpoint (configs/shapes.yaml,
     full width, f32), each with its launches counted: (a) reconstruction, and
@@ -1841,7 +1948,6 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
     128^2 from random weights, on the card against the CPU."""
     import copy
 
-    import torch
     from PIL import Image
 
     from monkeynet_tpu_torch.data.dataset import FramesDataset, PairedDataset
@@ -1852,7 +1958,7 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
     from monkeynet_tpu_torch.tasks.prediction import prediction
     from monkeynet_tpu_torch.tasks.reconstruction import (load_eval_models, reconstruction,
                                                           to_numpy)
-    from monkeynet_tpu_torch.tasks.transfer import transfer, transfer_one
+    from monkeynet_tpu_torch.tasks.transfer import transfer
     from monkeynet_tpu_torch.utils.checkpoint import save_checkpoint
     from monkeynet_tpu_torch.utils.config import load_config
 
@@ -1907,38 +2013,12 @@ def eval_phase(checkpoint: str, work_dir: Path, smi: str, device="cuda") -> dict
                                  device=device))
         _expect_files(work_dir / route / "transfer", pair_names, ".gif", route)
 
-    # (c) the card against the CPU from the same checkpoint, stage by stage:
-    # the keypoints (and the normalised ones) to their tolerances, then the
-    # generator on both devices from the card's keypoints to PARITY_OUT_TOL,
-    # and the chained outputs to CHAINED_OUT_TOL (PARITY_OUT_TOL does not
-    # cover a keypoint gap carried to a hard edge).
+    # (c) one reconstruction video and one hull pair, card against CPU
     x = pairs[0]
-    cases = {"reconstruction": (test[0]["video"][None, :1], test[0]["video"][None], {}),
-             "transfer_hull": (x["source_video"][None, :1], x["driving_video"][None],
-                               HULL_RECIPE)}
-    models = {dev: load_eval_models(config, checkpoint, device=dev) for dev in ("cpu", device)}
-    parity = {}
-    for label, (source, driving, norm) in cases.items():
-        chain = {dev: transfer_one(Animator(gen, device=dev), KPExtractor(kp, device=dev),
-                                   source, driving, {"normalization_params": norm})
-                 for dev, (gen, kp) in models.items()}
-        card = chain[device]
-        same_kp = to_numpy(Animator(models["cpu"][0], device="cpu")(
-            source, card["kp_norm"], card["kp_source"]))
-        errs = parity_errors(card, dict(chain["cpu"], **same_kp), f"eval parity {label}")
-        errs["kp_norm.mean"] = max_err(torch.as_tensor(card["kp_norm"]["mean"]),
-                                       torch.as_tensor(chain["cpu"]["kp_norm"]["mean"]))
-        check(f"eval parity {label} kp_norm.mean", errs["kp_norm.mean"], KP_NORM_TOL)
-        for key in ("video_prediction", "video_deformed"):
-            errs[f"chained.{key}"] = max_err(torch.as_tensor(card[key]),
-                                             torch.as_tensor(chain["cpu"][key]))
-            check(f"eval parity {label} chained {key}", errs[f"chained.{key}"],
-                  CHAINED_OUT_TOL)
-        parity[label] = errs
-    del models
-    result["parity"] = {"max_abs_err": parity,
-                        "tol": dict(PARITY_OUT_TOL, **{"kp_norm.mean": KP_NORM_TOL,
-                                                       "chained": CHAINED_OUT_TOL})}
+    result["parity"] = eval_parity(config, checkpoint, {
+        "reconstruction": (test[0]["video"][None, :1], test[0]["video"][None], {}),
+        "transfer_hull": (x["source_video"][None, :1], x["driving_video"][None], HULL_RECIPE),
+    }, "eval parity", device)
 
     # (d) prediction: the train split and the first EVAL_VIDEOS test videos
     # (linked into a directory of their own); a kp detector call per train
@@ -3214,9 +3294,411 @@ def parallel_launches(parallel: dict) -> dict:
     return paths
 
 
+# ---- phase 9: the JAX package's checkpoints, and the framework-free tools ------
+
+# The committed file the JAX package's train() wrote (2 steps at the tiny
+# widths of tests/torch_port_common.py's tiny_config over the first 8 train
+# videos of data/shapes at 64^2, batch 4; scripts/make_jax_checkpoint_fixture.py)
+# and its config. The card's machine has no JAX to write one.
+JAX_FIXTURE = REPO / "tests" / "fixtures" / "jax_train_checkpoint.msgpack"
+JAX_FIXTURE_CONFIG = REPO / "tests" / "fixtures" / "jax_train_checkpoint.yaml"
+# The layout of the JAX package's train checkpoint at configs/shapes.yaml's
+# widths, from the same script (the 58.5 MB file is too large to commit):
+# the card fills it with seeded values (jax_layout_tree) and writes it in
+# the bytes the JAX package's save_checkpoint writes (pack_msgpack).
+JAX_SHAPES_LAYOUT = REPO / "tests" / "fixtures" / "jax_shapes_train_layout.json"
+JAXCKPT_EVAL_VIDEOS = 2
+# Each file's resumed train(): (train videos, the epochs the config is cut
+# to). The fixture holds epoch 0 at Adam count 2, 2 steps an epoch at batch
+# 4; the run trains epochs 0-3 again: 8 steps, k = 8. At configs/shapes.yaml
+# width, 4 steps an epoch at batch 16; the file holds epoch 2 at count 12,
+# and the run trains epochs 2-4: 12 steps, k = 12, past the epoch-4
+# milestone (count 16) inside the graph's chunk.
+JAXCKPT_FIXTURE_CUT = (8, 4)
+JAXCKPT_SHAPES_CUT = (64, 5)
+JAXCKPT_SHAPES_EPOCH = 2
+
+
+def _tool(args, cwd: Path) -> str:
+    """One tool's command line in a process of its own; its standard output."""
+    proc = subprocess.run([sys.executable, "-m", *args], cwd=cwd, capture_output=True,
+                          text=True, timeout=300, env=dict(os.environ, PYTHONPATH=str(REPO)))
+    if proc.returncode != 0:
+        raise AssertionError(f"tools: {' '.join(args)} exited {proc.returncode}:\n"
+                             f"{proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def tools_phase(work_dir: Path) -> dict:
+    """(d) Each framework-free tool's command line once, on temporary
+    copies: a split of 10 videos, a preprocess of 4 frames, bg_removal of
+    data/demo's source frame, the user study's make / page / analyze."""
+    import numpy as np
+    from PIL import Image
+
+    t0, root = time.perf_counter(), work_dir / "tools"
+    videos = root / "videos"
+    videos.mkdir(parents=True)
+    shapes_test = REPO / "data" / "shapes" / "test"
+    for name in sorted(os.listdir(shapes_test))[:10]:
+        shutil.copy(shapes_test / name, videos / name)
+    _tool(["monkeynet_tpu_torch.data.tools", "split", str(videos)], root)
+    split = {s: len(os.listdir(videos / s)) for s in ("train", "test")}
+    if split != {"train": 9, "test": 1}:
+        raise AssertionError(f"tools split: {split}")
+
+    frames = root / "frames" / "clip"
+    frames.mkdir(parents=True)
+    with Image.open(videos / "train" / sorted(os.listdir(videos / "train"))[0]) as im:
+        strip = np.asarray(im.convert("RGB"))
+    for i in range(4):
+        Image.fromarray(strip[:, 64 * i:64 * (i + 1)]).save(frames / f"{i:03d}.png")
+    _tool(["monkeynet_tpu_torch.data.tools", "preprocess", str(frames.parent),
+           str(root / "stacked"), "--size", "32"], root)
+    with Image.open(root / "stacked" / "clip.jpg") as im:
+        if im.size != (4 * 32, 32):
+            raise AssertionError(f"tools preprocess: a {im.size} image")
+
+    with Image.open(REPO / "data" / "demo" / "source.png") as im:
+        source = np.asarray(im.convert("RGB"))
+    Image.fromarray(source[:, :source.shape[0]]).save(root / "frame.png")
+    out = _tool(["monkeynet_tpu_torch.data.bg_removal", str(root / "frame.png"),
+                 str(root / "clean.png"), "--image_shape", str(source.shape[0])], root)
+    with Image.open(root / "clean.png") as im:
+        if im.size != (source.shape[0],) * 2 or "wrote" not in out:
+            raise AssertionError(f"tools bg_removal: {im.size}, {out!r}")
+
+    for sub in ("ours", "baseline"):
+        (root / sub).mkdir()
+        for i in range(6):
+            (root / sub / f"{sub}-{i:08d}.gif").write_bytes(b"GIF89a")
+    study = root / "study"
+    study_cli = "monkeynet_tpu_torch.utils.user_study"
+    _tool([study_cli, "make", "--ours", str(root / "ours"), "--baseline",
+           str(root / "baseline"), "--out", str(study)], root)
+    _tool([study_cli, "page", "--manifest-dir", str(study)], root)
+    keys = (study / "key.csv").read_text().splitlines()[1:]
+    (root / "responses.csv").write_text(
+        "first,choice\n" + "".join(f"{k.split(',')[0]},optionA\n" for k in keys))
+    report = _tool([study_cli, "analyze", "--responses", str(root / "responses.csv"),
+                    "--key", str(study / "key.csv")], root)
+    if not report.startswith("n=6 votes") or not (study / "index.html").stat().st_size:
+        raise AssertionError(f"tools user_study: {report!r}")
+    return {"split": split, "study": report.strip(), "seconds": time.perf_counter() - t0}
+
+
+def pack_msgpack(tree) -> bytes:
+    """`tree` (dicts with str keys, numpy leaves) in the bytes the JAX
+    package's `save_checkpoint` writes for it: flax's msgpack_serialize of
+    the tree after jax.tree.map (keys sorted), every leaf an ndarray ext
+    (code 1: msgpack of (shape, dtype name, C-order bytes)), every header in
+    the shortest form msgpack has for it. The port reads such files and
+    writes none; this writes one on the card, which has no flax."""
+    import struct
+
+    import numpy as np
+
+    def head(n, fix, codes):
+        # the fix form (first code, limit) or the 8-, 16- or 32-bit form
+        if fix is not None and n < fix[1]:
+            return bytes([fix[0] | n])
+        for code, fmt in zip(codes, (">B", ">H", ">I")):
+            if code is not None and n < 256 ** struct.calcsize(fmt):
+                return bytes([code]) + struct.pack(fmt, n)
+        raise ValueError(f"msgpack: a length of {n}")
+
+    def pack(x):
+        if isinstance(x, dict):
+            return head(len(x), (0x80, 16), (None, 0xDE, 0xDF)) + b"".join(
+                pack(k) + pack(x[k]) for k in sorted(x))
+        if isinstance(x, tuple):
+            return head(len(x), (0x90, 16), (None, 0xDC, 0xDD)) + b"".join(map(pack, x))
+        if isinstance(x, str):
+            return head(len(x.encode()), (0xA0, 32), (0xD9, 0xDA, 0xDB)) + x.encode()
+        if isinstance(x, bytes):
+            return head(len(x), None, (0xC4, 0xC5, 0xC6)) + x
+        if isinstance(x, int) and 0 <= x < 2**32:  # a dimension: fixint or uint8/16/32
+            return bytes([x]) if x < 128 else head(x, None, (0xCC, 0xCD, 0xCE))
+        if isinstance(x, np.ndarray):
+            data = pack((x.shape, x.dtype.name, np.ascontiguousarray(x).tobytes()))
+            fixext = {1: 0xD4, 2: 0xD5, 4: 0xD6, 8: 0xD7, 16: 0xD8}
+            return (bytes([fixext[len(data)]]) if len(data) in fixext
+                    else head(len(data), None, (0xC7, 0xC8, 0xC9))) + b"\x01" + data
+        raise TypeError(f"msgpack: cannot pack a {type(x).__name__}")
+
+    return pack(tree)
+
+
+def jax_layout_tree(layout: dict, count: int, epoch: int, seed: int = SEED) -> dict:
+    """A JAX train checkpoint's payload of `layout` (JAX_SHAPES_LAYOUT) with
+    seeded values: kernels at the scale of their fan-in, norm scales near
+    1, biases and running means near 0, running variances in [0.5, 1.5],
+    Adam's mu near 0 and nu positive; the state's step and both optax counts
+    at `count`, `epoch`, and `it` at `count` (where the JAX train loop's
+    epoch-end file puts it)."""
+    import numpy as np
+
+    rng = np.random.RandomState(seed)
+    ints = {"step": count, "count": count, "epoch": epoch, "it": count}
+
+    def fill(tree, path):
+        if "dtype" not in tree:
+            return {k: fill(tree[k], path + (k,)) for k in sorted(tree)}
+        shape, dtype, name = tuple(tree["shape"]), np.dtype(tree["dtype"]), path[-1]
+        moment = path[4] if path[:2] == ("state", "opt_states") and len(path) > 5 else None
+        if dtype.kind != "f":
+            value = ints[name]
+        elif moment == "nu":
+            value = 1e-6 * rng.uniform(0.5, 1.5, shape)
+        elif moment == "mu":
+            value = 1e-3 * rng.randn(*shape)
+        elif name == "var":
+            value = rng.uniform(0.5, 1.5, shape)
+        elif name == "kernel":
+            value = rng.randn(*shape) / np.sqrt(np.prod(shape[:-1]))
+        elif name == "scale":
+            value = 1 + 0.1 * rng.randn(*shape)
+        else:  # biases, running means
+            value = 0.1 * rng.randn(*shape)
+        return np.asarray(value, dtype)
+
+    return fill(layout, ())
+
+
+def _same_tree(got, want, where: str = "") -> int:
+    """Leaves of two decoded trees equal in keys, order, dtype and bits."""
+    import numpy as np
+
+    if isinstance(want, dict):
+        if not isinstance(got, dict) or list(got) != list(want):
+            raise AssertionError(f"jaxckpt: {where or '/'} holds other keys")
+        return sum(_same_tree(got[k], want[k], f"{where}/{k}") for k in want)
+    if got.dtype != want.dtype or got.shape != want.shape or not np.array_equal(got, want):
+        raise AssertionError(f"jaxckpt: {where} differs")
+    return 1
+
+
+def _jax_file_phase(label: str, config, ckpt: Path, cut, work_dir: Path, smi: str,
+                    device="cuda") -> dict:
+    """(a)-(c) of jaxckpt_phase for the JAX train checkpoint `ckpt` of
+    `config`, after its kernels at the shapes that (a)-(c) give them
+    (loop_kernel_phase at the train step, eval_kernel_phase at the
+    reconstruction's chunks)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from monkeynet_tpu_torch.data.dataset import FramesDataset
+    from monkeynet_tpu_torch.tasks.animate import _bucket
+    from monkeynet_tpu_torch.tasks.build import build_train_models
+    from monkeynet_tpu_torch.tasks.reconstruction import reconstruction
+    from monkeynet_tpu_torch.tasks.train import MODEL_NAMES, Trainer, multistep_lr
+    from monkeynet_tpu_torch.tasks.train_loop import train
+    from monkeynet_tpu_torch.utils.checkpoint import checkpoint_name, load_any
+    from monkeynet_tpu_torch.utils.msgpack import read_msgpack
+    from monkeynet_tpu_torch.utils.weights import from_jax_variables
+
+    videos, epochs = cut
+    tp = config["train_params"]
+    steps_per_epoch = videos // tp["batch_size"]
+    test = FramesDataset(is_train=False, **config["dataset_params"])
+    test.images = test.images[:JAXCKPT_EVAL_VIDEOS]
+    result = {"file": label, "bytes": ckpt.stat().st_size, "seconds": {}, "launches": {}}
+    loop_kernel_phase(device, config, f"jaxckpt {label}")
+    chunks = sorted({_bucket(test[i]["video"].shape[0], CHUNK) for i in range(len(test))})
+    eval_kernel_phase(device, [(f"jaxckpt {label}", config, HW, f) for f in chunks])
+
+    # (a) the file into a Trainer on the card
+    trainer = Trainer(build_train_models(config, device=device, seed=SEED + 2), tp,
+                      device=device, steps_per_epoch=steps_per_epoch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.load_state_dict(load_any(str(ckpt)))
+    torch.cuda.synchronize()
+    result["seconds"]["load"] = time.perf_counter() - t0
+    tree = read_msgpack(str(ckpt))
+    state = tree["state"]
+    on = torch.device(device).type
+    count = int(state["opt_states"]["generator"]["0"]["count"])
+    schedule = multistep_lr(tp["lr"], tp["epoch_milestones"], steps_per_epoch)
+    lr = np.float32(schedule(count))
+    tensors = 0
+    for name in MODEL_NAMES:
+        want = from_jax_variables(state["params"][name], state["batch_stats"].get(name, {}))
+        got = trainer.models[name].state_dict()
+        if set(got) != set(want):
+            raise AssertionError(f"jaxckpt {label} (a): {name}'s keys differ from the file's")
+        for key, value in want.items():
+            if got[key].device.type != on or not torch.equal(got[key].cpu(), value):
+                raise AssertionError(f"jaxckpt {label} (a): {name}.{key} differs from the file")
+            tensors += 1
+        adam = state["opt_states"][name]["0"]
+        moments = {"exp_avg": from_jax_variables(adam["mu"], {}),
+                   "exp_avg_sq": from_jax_variables(adam["nu"], {})}
+        optimizer = trainer.optimizers[name]
+        for (pname, p), q in zip(trainer.models[name].named_parameters(),
+                                 optimizer.param_groups[0]["params"]):
+            entry = optimizer.state[q]
+            if p is not q or entry["step"].device.type != on or entry["step"].item() != count:
+                raise AssertionError(f"jaxckpt {label} (a): {name}.{pname}'s Adam step "
+                                     f"{entry['step']}")
+            for key, values in moments.items():
+                if not torch.equal(entry[key].cpu(), values[pname]):
+                    raise AssertionError(f"jaxckpt {label} (a): {name}.{pname} {key} differs")
+                tensors += 1
+        if np.float32(optimizer.param_groups[0]["lr"]) != lr or \
+                trainer.schedulers[name].last_epoch != count:
+            raise AssertionError(f"jaxckpt {label} (a): {name} resumes at rate "
+                                 f"{optimizer.param_groups[0]['lr']}, the schedule's {lr}")
+    gen = torch.Generator().manual_seed(SEED)
+    batch = {k: torch.randint(0, 256, (tp["batch_size"], 1, HW, HW, 3), generator=gen,
+                              dtype=torch.uint8).to(device) for k in ("source", "video")}
+    metrics = trainer.step(batch)["metrics"]
+    rates = {name: rate.item() for name, rate in trainer._rates.items()}
+    if any(np.float32(r) != lr for r in rates.values()) or not torch.isfinite(metrics).all():
+        raise AssertionError(f"jaxckpt {label} (a): the first step ran at {rates} (want "
+                             f"{lr}), metrics {metrics}")
+    del trainer
+    result.update(tensors_checked=tensors, count=count, lr=float(lr), first_step_rates=rates)
+
+    # (b) reconstruction from the file on the card (launches counted), and
+    # one test video card against CPU, stage by stage
+    rconfig = copy.deepcopy(config)
+    rconfig["reconstruction_params"]["num_videos"] = JAXCKPT_EVAL_VIDEOS - 1
+    want = _route_launches(rconfig, JAXCKPT_EVAL_VIDEOS, 3 * JAXCKPT_EVAL_VIDEOS)
+    metrics, launches, seconds = _counted(
+        f"jaxckpt {label} reconstruction", smi, want,
+        lambda: reconstruction(rconfig, str(work_dir / f"{label}_eval"), test, str(ckpt),
+                               device=device))
+    if not all(math.isfinite(v) for v in metrics.values()):
+        raise AssertionError(f"jaxckpt {label} (b): metrics {metrics}")
+    result["launches"]["reconstruction"], result["seconds"]["reconstruction"] = launches, seconds
+    video = test[0]["video"]
+    result["reconstruction"] = metrics
+    result["parity"] = eval_parity(config, str(ckpt), {
+        "reconstruction": (video[None, :1], video[None], {})}, f"jaxckpt {label} parity", device)
+
+    # (c) train() resumed from the file on the config's path
+    tconfig = copy.deepcopy(config)
+    tconfig["train_params"].update(num_epochs=epochs,
+                                   log_params={"log_freq_iter": 1, "cpk_freq_epoch": 1})
+    if not tconfig["train_params"].get("device_feed"):
+        raise AssertionError(f"jaxckpt {label}: the config no longer asks for the device feed")
+    dataset = FramesDataset(is_train=True, **tconfig["dataset_params"])
+    dataset.images = dataset.images[:videos]
+    start = int(tree["epoch"])
+    steps = (epochs - start) * steps_per_epoch
+    per_step = _step_launches(tconfig)
+    counters = _counters()
+    torch.cuda.synchronize()
+    for fn in counters.values():
+        fn.launches = 0
+    run = train(tconfig, str(ckpt.parent), dataset, checkpoint=str(ckpt), seed=SEED,
+                device=device)
+    torch.cuda.synchronize()
+    counted = {name: fn.launches for name, fn in counters.items()}
+    if run.steps != steps or run.epochs != list(range(start, epochs)) or \
+            not run.device_feed or run.steps_per_dispatch != steps:
+        raise AssertionError(f"jaxckpt {label} (c): {run.steps} steps over epochs "
+                             f"{run.epochs}, device feed {run.device_feed}, "
+                             f"k {run.steps_per_dispatch}")
+    result["launches"]["resumed_train"] = _graph_launches(
+        f"jaxckpt {label} resume", run.trainer, counted, per_step, steps)
+    it = int(tree["it"])
+    rows = _log_rows(ckpt.parent)
+    if [r[0] for r in rows] != list(range(it, it + steps)) or not all(
+            math.isfinite(v) for _, values, _ in rows for v in values.values()):
+        raise AssertionError(f"jaxckpt {label} (c): log rows {rows}")
+    # After the run: every Adam step at count + steps; the rate the last
+    # replay read (filled before it) at count + steps - 1, the host's next
+    # at count + steps
+    last_lr, next_lr = np.float32(schedule(count + steps - 1)), np.float32(schedule(count + steps))
+    for name in MODEL_NAMES:
+        optimizer = run.trainer.optimizers[name]
+        after = {entry["step"].item() for entry in optimizer.state.values()}
+        if after != {count + steps} or np.float32(optimizer.param_groups[0]["lr"]) != next_lr \
+                or np.float32(run.trainer._rates[name].item()) != last_lr:
+            raise AssertionError(f"jaxckpt {label} (c): {name} Adam steps {after}, rate "
+                                 f"{optimizer.param_groups[0]['lr']} after the run")
+    cpks = [ckpt.parent / checkpoint_name(e) for e in range(start, epochs)]
+    if not all(p.exists() for p in cpks):
+        raise AssertionError(f"jaxckpt {label} (c): checkpoints "
+                             f"{sorted(os.listdir(ckpt.parent))}")
+    result["seconds"]["train_wall"] = run.wall_s
+    result.update(resumed_steps=steps, steps_per_dispatch=run.steps_per_dispatch,
+                  expected_per_step=per_step, steps_per_s=steps / run.wall_s,
+                  step_wall_ms=1e3 * run.wall_s / steps, logged_its=[r[0] for r in rows],
+                  rates=[float(schedule(count)), float(last_lr)])
+    del run
+    log(result)
+    log(f"jaxckpt {label}: loaded {result['bytes']} bytes in {result['seconds']['load']:.3f} "
+        f"s; reconstruction of {JAXCKPT_EVAL_VIDEOS} videos {seconds:.3f} s; resumed train() "
+        f"{steps} steps in {result['seconds']['train_wall']:.3f} s "
+        f"({result['step_wall_ms']:.3f} ms a step, device feed, graph); on {smi}")
+    return result
+
+
+def jaxckpt_phase(work_dir: Path, smi: str, device="cuda") -> dict:
+    """JAX package train checkpoints on the card, through the entry points a
+    user calls, for two files: the committed one the JAX package wrote
+    (JAX_FIXTURE, tiny widths) and one of configs/shapes.yaml's layout at
+    full width (JAX_SHAPES_LAYOUT with seeded values, written as the JAX
+    package writes it and read back leaf for leaf). For each, after its
+    kernels at the shapes below: (a) the file into a Trainer on the card,
+    every tensor bit for bit against the decoded arrays after the layout
+    map (parameters, batch statistics, Adam moments, each Adam step on the
+    card at the file's count), the rate at the JAX schedule's value there,
+    one eager step at that rate; (b) reconstruction() from the file over
+    the first 2 test videos of data/shapes on the card (launches counted),
+    and the first video card against CPU stage by stage (eval_parity);
+    (c) train() resumed from the file on the config's path (the device
+    feed, the step's CUDA graph), launches as capture x replays, finite
+    rows from the file's `it` on, the Adam steps and rate after the run.
+    Then (d) the tools' command lines (tools_phase)."""
+    import json
+
+    from monkeynet_tpu_torch.utils.config import load_config
+    from monkeynet_tpu_torch.utils.msgpack import read_msgpack
+
+    fixture = work_dir / "fixture" / JAX_FIXTURE.name
+    fixture.parent.mkdir()
+    shutil.copy(JAX_FIXTURE, fixture)
+    shapes_config = load_config(str(REPO / "configs" / "shapes.yaml"))
+    count = (JAXCKPT_SHAPES_EPOCH + 1) * (
+        JAXCKPT_SHAPES_CUT[0] // shapes_config["train_params"]["batch_size"])
+    tree = jax_layout_tree(json.loads(JAX_SHAPES_LAYOUT.read_text()), count,
+                           JAXCKPT_SHAPES_EPOCH)
+    shapes = work_dir / "shapes" / f"{JAXCKPT_SHAPES_EPOCH:08d}-checkpoint.msgpack"
+    shapes.parent.mkdir()
+    t0 = time.perf_counter()
+    shapes.write_bytes(pack_msgpack(tree))
+    result = {"phase": "jaxckpt", "shapes_file_write_s": time.perf_counter() - t0,
+              "shapes_file_leaves": _same_tree(read_msgpack(str(shapes)), tree),
+              "files": {}, "launches": {}}
+    del tree
+    for label, config, path, cut in (
+            ("fixture", load_config(str(JAX_FIXTURE_CONFIG)), fixture, JAXCKPT_FIXTURE_CUT),
+            ("shapes", shapes_config, shapes, JAXCKPT_SHAPES_CUT)):
+        config["dataset_params"]["root_dir"] = str(REPO / "data" / "shapes")
+        one = _jax_file_phase(label, config, path, cut, work_dir, smi, device)
+        result["files"][label] = one
+        for name, launches in one["launches"].items():
+            result["launches"][f"{label} {name}"] = launches
+
+    # (d) the tools' command lines
+    result["tools"] = tools_phase(work_dir)
+    result["jaxckpt_launches"] = {name: sum(launches[name] for launches in
+                                            result["launches"].values())
+                                  for name in _counters()}
+    log(result)
+    log(f"jaxckpt: tools {result['tools']['seconds']:.3f} s; on {smi}")
+    return result
+
+
 def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                  loop_launches: dict, eval_launches: dict, actions_launches: dict,
-                 sharded_launches: dict) -> dict:
+                 sharded_launches: dict, jaxckpt_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; every path's counts are also
@@ -3224,7 +3706,9 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
     steps through the step's CUDA graph, captured launches x replays;
     `eval_launches`: the counted steps of eval_phase; `actions_launches`:
     phase 7's loop on configs/actions.yaml, 90 steps through the graph;
-    `parallel_launches`: phase 8's paths, `parallel_launches` above).
+    `parallel_launches`: phase 8's paths, `parallel_launches` above;
+    `jaxckpt_launches`: phase 9's reconstruction and resumed train() from
+    each JAX package file).
     Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
@@ -3259,7 +3743,9 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                "eval_launches": eval_launches[name],
                "actions_launches": actions_launches[name],
                "parallel_launches": {path: launches[name]
-                                     for path, launches in sharded_launches.items()}}
+                                     for path, launches in sharded_launches.items()},
+               "jaxckpt_launches": {path: launches[name]
+                                    for path, launches in jaxckpt_launches.items()}}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
@@ -3285,7 +3771,7 @@ def full_f32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-PHASES = ("kernels", "parity", "main", "loop", "dispatch", "parallel")
+PHASES = ("kernels", "parity", "main", "loop", "dispatch", "parallel", "jaxckpt")
 
 
 def main(argv=None) -> int:
@@ -3329,6 +3815,7 @@ def main(argv=None) -> int:
             "loop": lambda work: eval_phase(train_loop_phase(work)["checkpoint"], work, smi),
             "dispatch": lambda work: dispatch_phase(work, smi),
             "parallel": lambda work: parallel_launches(parallel_phase(work, smi)),
+            "jaxckpt": lambda work: jaxckpt_phase(work, smi),
         }
         for name in only:
             with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
@@ -3367,12 +3854,16 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
         sharded = parallel_launches(parallel_phase(Path(work), smi))
     lap("parallel")
+    with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
+        jaxckpt = jaxckpt_phase(Path(work), smi)
+    lap("jaxckpt")
     log({"phase": "seconds", **seconds})
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
     print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
                                   loop["launches"], evals["eval_launches"],
-                                  dispatch["actions"]["launches"], sharded)), flush=True)
+                                  dispatch["actions"]["launches"], sharded,
+                                  jaxckpt["launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -18,7 +18,9 @@ from typing import Tuple
 import numpy as np
 
 
-def _read_image(path: str) -> np.ndarray:
+def read_image(path: str) -> np.ndarray:
+    """One image file as the array Pillow gives (uint8 for 8-bit files; a
+    palette expanded as imageio expands it)."""
     from PIL import Image
 
     with Image.open(path) as im:
@@ -92,7 +94,7 @@ def decode_video(name: str, image_shape=(64, 64, 3)) -> Tuple[np.ndarray, str]:
         decoded = native.read_stacked(name, image_shape[0], image_shape[1])
         if decoded is not None:
             return decoded, "native"
-        image = _ensure_rgb(_read_image(name))
+        image = _ensure_rgb(read_image(name))
         image = _to_float32(image)
         h, w = image_shape[0], image_shape[1]
         file_h = image.shape[0]
@@ -141,6 +143,14 @@ def write_stacked_png(path: str, video: np.ndarray) -> None:
 
     stacked = np.concatenate(list(video), axis=1)
     Image.fromarray((255 * np.clip(stacked, 0, 1)).astype(np.uint8)).save(path)
+
+
+def write_image(path: str, image: np.ndarray) -> None:
+    """A uint8 image array to `path`, in the format its extension names,
+    with Pillow's defaults (JPEG at quality 75, as imageio writes it)."""
+    from PIL import Image
+
+    Image.fromarray(image).save(path)
 
 
 def write_gif(path: str, frames: np.ndarray) -> None:

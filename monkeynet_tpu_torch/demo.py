@@ -1,7 +1,7 @@
 """Single-pair motion-transfer demo on the card.
 
     python -m monkeynet_tpu_torch.demo --config configs/moving-gif.yaml \\
-        --checkpoint <.pth.tar>
+        --checkpoint <.pth.tar, or the JAX package's .msgpack>
 
 Counterpart of the repository's demo.py (the JAX package's; reference
 demo.py:23-71). Defaults to the bundled demo pair, data/demo/driving.png (a

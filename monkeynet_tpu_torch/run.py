@@ -7,13 +7,18 @@
         --checkpoint ...
     python -m monkeynet_tpu_torch.run --config configs/shapes.yaml --mode prediction \\
         --checkpoint ...
+    python -m monkeynet_tpu_torch.run --config configs/shapes.yaml --mode reconstruction \\
+        --checkpoint "log/shapes <date>/00000007-checkpoint.msgpack"
 
 Counterpart of the repository's run.py (the JAX package's CLI): a
 timestamped log directory (or the checkpoint's own) with the config copied
 in, the config's dataset (its train split for train, its test split for
 the rest), then the mode. Train resumes from `--checkpoint`; the eval modes
-need one (a `.pth.tar` the port wrote, or one in the reference's form). It
-runs on the card and refuses to start without one.
+need one. Either package's checkpoint will do in every mode: a `.pth.tar`
+the port wrote or one in the reference's form, or a `.msgpack` the JAX
+package's train wrote (its parameters, batch statistics and Adam moments;
+utils/checkpoint.py `load_any`). It runs on the card and refuses to start
+without one.
 
 `--num_devices N` trains data-parallel over N cards (N ranks, spawned here,
 or this process one of N under torchrun) and shards the eval modes' frames
@@ -37,7 +42,9 @@ def main(argv=None) -> int:
                         choices=["train", "reconstruction", "transfer", "prediction"])
     parser.add_argument("--log_dir", default="log", help="root log directory")
     parser.add_argument("--checkpoint", default=None,
-                        help="checkpoint to resume from (train) or to evaluate")
+                        help="checkpoint to resume from (train) or to evaluate: the "
+                             "port's or the reference's .pth.tar, or the JAX package's "
+                             ".msgpack")
     parser.add_argument("--num_devices", type=int, default=1,
                         help="data-parallel mesh size: batch-sharded training, "
                              "frame-sharded eval (1 = single chip)")

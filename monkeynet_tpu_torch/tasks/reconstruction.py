@@ -24,21 +24,21 @@ from monkeynet_tpu_torch.tasks.animate import KPExtractor, TransferEngine
 from monkeynet_tpu_torch.tasks.build import build_models
 from monkeynet_tpu_torch.tasks.metrics import EmbeddingExtractor, aed, akd
 from monkeynet_tpu_torch.utils.async_write import AsyncWriter
-from monkeynet_tpu_torch.utils.checkpoint import load_checkpoint
+from monkeynet_tpu_torch.utils.checkpoint import load_any
 from monkeynet_tpu_torch.utils.device import require_device
 from monkeynet_tpu_torch.utils.visualizer import Visualizer
 
 
 def load_eval_models(config, checkpoint: str, device="cuda"):
     """(generator, kp_detector) in eval mode on `device`, with the weights of
-    a `.pth.tar`: the train loop's checkpoint or a file that holds only the
-    'generator' and 'kp_detector' state_dicts (the reference's form)."""
-    if checkpoint.endswith(".msgpack"):
-        raise NotImplementedError(
-            f"{checkpoint}: the JAX package's msgpack checkpoints are not read by the port "
-            "yet (ROADMAP item 11); give a .pth.tar")
+    a checkpoint in either package's form (utils/checkpoint.py `load_any`):
+    a `.pth.tar` (the train loop's checkpoint, or a file that holds only the
+    'generator' and 'kp_detector' state_dicts, the reference's form), or
+    the JAX package's `.msgpack` (its train state's two networks, as the
+    JAX package's `load_eval_models` takes them, or a file of bare
+    networks)."""
     generator, kp_detector = build_models(config, device=device)
-    loaded = load_checkpoint(checkpoint)
+    loaded = load_any(checkpoint)
     generator.load_state_dict(loaded["generator"])
     kp_detector.load_state_dict(loaded["kp_detector"])
     return generator, kp_detector

@@ -86,6 +86,7 @@ from monkeynet_tpu_torch.tasks.losses import (
     generator_loss_names,
 )
 from monkeynet_tpu_torch.utils.device import require_device
+from monkeynet_tpu_torch.utils.weights import adam_state_dict
 
 MODEL_NAMES = ("generator", "discriminator", "kp_detector")
 # Eager steps before a capture, undone afterwards: they build the kernels,
@@ -186,6 +187,10 @@ class Trainer:
                 self.optimizers[name], self.schedulers[name] = make_optimizer(
                     model.parameters(), train_params, steps_per_epoch, capturable=capturable
                 )
+        # the schedulers' rate as a function of the step, for a resume that
+        # sets their position (`load_state_dict`)
+        self._schedule = None if optimizer_factory is not None else multistep_lr(
+            train_params["lr"], train_params["epoch_milestones"], steps_per_epoch)
         # On the card the scheduled rates reach Adam as tensors, filled from
         # the host schedule before every step (`_load_rates`); the param
         # groups keep the host's float, which is what checkpoints hold.
@@ -509,10 +514,14 @@ class Trainer:
 
     def load_state_dict(self, state: Dict) -> None:
         """Restore what `state_dict` gives, or the part of it that `state`
-        holds: a network absent from `state` keeps its weights. Where a
+        holds: a network absent from `state` keeps its weights. An optimizer
+        entry may also be a JAX package file's Adam moments, keyed by
+        parameter name (utils/weights.py `from_optax_adam`); they are put in
+        the order this network's Adam holds its parameters. Where a
         network's optimizer state comes without a scheduler's (the
-        reference's own checkpoints), the scheduler resumes at the
-        optimizer's step, as the JAX package's schedule does on resume
+        reference's own checkpoints, the JAX package's), the scheduler
+        resumes at the optimizer's step, with the rate the schedule gives
+        there, as the JAX package's schedule does on resume
         (`restore_adam_moments` in monkeynet_tpu/tasks/train.py). A captured
         graph is dropped (the optimizer state it read is replaced)."""
         self._graph = None
@@ -522,17 +531,23 @@ class Trainer:
             self.models[name].load_state_dict(state[name])
             opt_state = state.get(f"optimizer_{name}")
             if opt_state is not None:
-                self.optimizers[name].load_state_dict(opt_state)
+                optimizer = self.optimizers[name]
+                if "exp_avg" in opt_state:
+                    group = dict(optimizer.param_groups[0], capturable=False)
+                    opt_state = adam_state_dict(
+                        opt_state, [n for n, _ in self.models[name].named_parameters()], group)
+                optimizer.load_state_dict(opt_state)
                 if name in self._rates:
-                    _make_capturable(self.optimizers[name])
+                    _make_capturable(optimizer)
             if name not in self.schedulers:
                 continue
+            scheduler = self.schedulers[name]
             if f"scheduler_{name}" in state:
-                self.schedulers[name].load_state_dict(state[f"scheduler_{name}"])
+                scheduler.load_state_dict(state[f"scheduler_{name}"])
             elif opt_state is not None and opt_state["state"]:
-                self.schedulers[name].last_epoch = max(
-                    int(s["step"]) for s in opt_state["state"].values()
-                )
+                scheduler.last_epoch = max(int(s["step"]) for s in opt_state["state"].values())
+                for group in scheduler.optimizer.param_groups:
+                    group["lr"] = self._schedule(scheduler.last_epoch)
 
 
 def _clone_tree(tree):

@@ -27,6 +27,9 @@ Resume follows the reference and the JAX package: a checkpoint holds the
 epoch that last finished and the last logged iteration, and the resumed run
 starts at that epoch, so it trains that epoch again
 (tests/test_e2e.py::test_resume_from_checkpoint pins this in the JAX package).
+The checkpoint may be the port's or the reference's `.pth.tar` or the JAX
+package's `.msgpack` (utils/checkpoint.py `load_any`); the iteration count
+goes on from the file's `it`.
 
 Data parallelism (`num_devices` > 1, or a process `group`): one process a
 device, each loading only its slab of every global batch (the loader and
@@ -74,7 +77,7 @@ from monkeynet_tpu_torch.parallel.mesh import local_devices
 from monkeynet_tpu_torch.tasks.animate import split_kp
 from monkeynet_tpu_torch.tasks.build import build_train_models
 from monkeynet_tpu_torch.tasks.train import Trainer, largest_divisor_leq, metric_names
-from monkeynet_tpu_torch.utils.checkpoint import load_checkpoint
+from monkeynet_tpu_torch.utils.checkpoint import load_any
 from monkeynet_tpu_torch.utils.device import require_device
 from monkeynet_tpu_torch.utils.logger import Logger
 
@@ -163,7 +166,7 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
 
     start_epoch, it = 0, 0
     if checkpoint is not None:
-        loaded = load_checkpoint(checkpoint, group=group)
+        loaded = load_any(checkpoint, group=group)
         trainer.load_state_dict(loaded)
         start_epoch = int(loaded.get("epoch", 0))
         it = int(loaded.get("it", 0))

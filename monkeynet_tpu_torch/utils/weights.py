@@ -18,13 +18,17 @@ A bare `Encoder` tree (the frozen AED embedder's) maps the same way, to an
                                    -> `gru.weight_ih_l{l}` ... (both in
                                       torch's layout and [r, z, n] order)
   head kernel (in, out) / bias     -> `head.weight` (out, in) / `head.bias`
+A network's optax chain state (the JAX package's `make_optimizer`: Adam
+then the scheduled rate) maps to a `torch.optim.Adam` state through
+`from_optax_adam` and `adam_state_dict`: its moments through the same
+names and layouts as the parameters, its count to Adam's step.
 """
 
 from __future__ import annotations
 
 import re
 from collections import OrderedDict
-from typing import Any, Dict, Iterator, Mapping, Tuple
+from typing import Any, Dict, Iterator, List, Mapping, Tuple
 
 import numpy as np
 import torch
@@ -93,15 +97,31 @@ def _key(path, collection: str) -> Tuple[str, str]:
     raise KeyError(f"no port parameter for flax {collection}:{'/'.join(path)}")
 
 
+def _as_f32(value, where: str) -> np.ndarray:
+    """A floating leaf as an f32 array. The port's weights are f32: a bf16 or
+    f16 leaf widens exactly and an f64 one rounds to the nearest f32; any
+    other dtype raises."""
+    if isinstance(value, torch.Tensor):  # a bf16 leaf (utils/msgpack.py)
+        if not value.is_floating_point():
+            raise TypeError(f"{where}: a {value.dtype} leaf where a float was expected")
+        return value.to(torch.float32).numpy()
+    v = np.asarray(value)
+    if v.dtype.kind != "f":
+        raise TypeError(f"{where}: a {v.dtype} leaf where a float was expected")
+    return v.astype(np.float32)
+
+
 def from_jax_variables(params: Mapping[str, Any],
                        batch_stats: Mapping[str, Any]) -> Dict[str, torch.Tensor]:
     """One model's flax `params` and `batch_stats` -> the port's state_dict
-    (f32 tensors, plus num_batches_tracked = 0 for every norm)."""
+    (f32 tensors, plus num_batches_tracked = 0 for every norm: the JAX
+    package keeps no such count, and a batch norm with a momentum never
+    reads it)."""
     sd: Dict[str, torch.Tensor] = OrderedDict()
     for collection, tree in (("params", params), ("batch_stats", batch_stats)):
         for path, value in _leaves(tree):
             key, kind = _key(path, collection)
-            v = np.asarray(value, dtype=np.float32)
+            v = _as_f32(value, f"flax {collection}:{'/'.join(path)}")
             if kind == "kernel":
                 if v.ndim != 4:
                     raise ValueError(f"{key}: expected a (kh, kw, in, out) kernel, got {v.shape}")
@@ -112,3 +132,43 @@ def from_jax_variables(params: Mapping[str, Any],
             if kind == "stat" and key.endswith("running_mean"):
                 sd[key[: -len("running_mean")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+def from_optax_adam(chain_state: Mapping[str, Any]) -> Dict[str, Any]:
+    """One network's optax chain state, as flax serialises the JAX package's
+    `make_optimizer` (monkeynet_tpu/tasks/train.py): {'0': {'count', 'mu',
+    'nu'}} for `scale_by_adam` and {'1': {'count'}} for the scheduled rate.
+    Returns {'step': the count, 'exp_avg': {torch key: mu}, 'exp_avg_sq':
+    {torch key: nu}}, the moments under the parameters' names and layouts.
+    After n updates optax's count and torch's Adam step both read n, so the
+    bias corrections agree. The two counts must agree: the rate's count is
+    the step the schedule reads, and the port's MultiStepLR resumes at
+    Adam's."""
+    adam, rate = chain_state["0"], chain_state.get("1", {})
+    count = int(np.asarray(adam["count"]))
+    if "count" in rate and int(np.asarray(rate["count"])) != count:
+        raise ValueError(f"the Adam count {count} and the schedule's count "
+                         f"{int(np.asarray(rate['count']))} differ")
+    return {"step": count, "exp_avg": from_jax_variables(adam["mu"], {}),
+            "exp_avg_sq": from_jax_variables(adam["nu"], {})}
+
+
+def adam_state_dict(moments: Mapping[str, Any], names: List[str],
+                    param_group: Mapping[str, Any]) -> Dict[str, Any]:
+    """`from_optax_adam`'s moments as a `torch.optim.Adam` state_dict over
+    the parameters `names` (a network's `named_parameters()` order, the
+    order its optimizer holds them in), with the hyperparameters of
+    `param_group`. The step is an f32 CPU tensor, as an eager Adam keeps
+    it. A parameter without moments, or moments without a parameter,
+    raise."""
+    have = set(moments["exp_avg"])
+    if have != set(names) or set(moments["exp_avg_sq"]) != have:
+        missing, extra = sorted(set(names) - have), sorted(have - set(names))
+        raise KeyError(f"optimizer moments do not match the network's parameters: "
+                       f"missing {missing[:5]}, no parameter for {extra[:5]}")
+    state = {i: {"step": torch.tensor(float(moments["step"])),
+                 "exp_avg": moments["exp_avg"][name].clone(),
+                 "exp_avg_sq": moments["exp_avg_sq"][name].clone()}
+             for i, name in enumerate(names)}
+    group = {k: v for k, v in param_group.items() if k != "params"}
+    return {"state": state, "param_groups": [dict(group, params=list(range(len(names))))]}

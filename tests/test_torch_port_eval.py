@@ -388,8 +388,9 @@ def test_transfer_one_matches_jax(shared):
 
 
 def test_load_eval_models_reads_both_checkpoint_forms(shared, tmp_path):
-    """A bare generator / kp_detector file and the train loop's checkpoint
-    (with optimizer entries) give the same weights; msgpack is refused."""
+    """A bare generator / kp_detector file, the train loop's checkpoint
+    (with optimizer entries) and the JAX package's msgpack file of the same
+    networks give the same weights."""
     config = shared["config"]
     bare_gen, bare_kp = trecon.load_eval_models(config, shared["ckpt"], device="cpu")
     payload = torch.load(shared["ckpt"], weights_only=True)
@@ -403,8 +404,15 @@ def test_load_eval_models_reads_both_checkpoint_forms(shared, tmp_path):
             assert torch.equal(x, y), key
     for key, value in payload["generator"].items():
         assert torch.equal(gen.state_dict()[key], value), key
-    with pytest.raises(NotImplementedError, match="ROADMAP item 11"):
-        trecon.load_eval_models(config, str(tmp_path / "x-checkpoint.msgpack"), device="cpu")
+    from monkeynet_tpu.utils.checkpoint import save_checkpoint as jax_save_checkpoint
+
+    jax_ckpt = str(tmp_path / "00000000-checkpoint.msgpack")
+    jax_save_checkpoint(jax_ckpt, {"generator": shared["gen_vars"],
+                                   "kp_detector": shared["kp_vars"]})
+    gen, kp = trecon.load_eval_models(config, jax_ckpt, device="cpu")
+    for a, b in ((gen, bare_gen), (kp, bare_kp)):
+        for (key, x), (_, y) in zip(a.state_dict().items(), b.state_dict().items()):
+            assert torch.equal(x, y), key
 
 
 def test_eval_drivers_refuse_missing_checkpoint_cuda_and_devices(shared, tmp_path, monkeypatch):

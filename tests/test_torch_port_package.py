@@ -73,9 +73,12 @@ def test_published_layouts():
 
 
 def test_port_imports_no_jax():
-    """No file of the port, and not chip_smoke.py, imports jax, flax or the
-    JAX package."""
-    banned = {"jax", "jaxlib", "flax", "optax", "chex", "monkeynet_tpu"}
+    """No file of the port, and not chip_smoke.py, imports jax, flax, the
+    msgpack package (the port decodes flax's files itself) or the JAX
+    package, nor what the card's machine lacks: sklearn, imageio,
+    matplotlib."""
+    banned = {"jax", "jaxlib", "flax", "optax", "chex", "monkeynet_tpu", "msgpack", "sklearn",
+              "imageio", "matplotlib"}
     files = sorted(PORT.rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
     for path in files:
