@@ -11,15 +11,22 @@ Phases, each of which raises on failure:
      of the taichi-64^2 transfer (chunk of 128 frames), the warp forward,
      soft-argmax and heatmap also L2-cold, the warp on random and identity
      grids with its launch plan, the soft-argmax and heatmap at the source
-     frame's shapes, in both variants of the first and every variance mode
-     and normalisation of the second (softargmax_phase, heatmap_phase); the
+     frame's shapes, in all three variants of the first ('split' at
+     configs/vox-full.yaml's 256^2 x 10 for 2 and 32 frames, twice bit for
+     bit, timed beside the old 'plane' kernel on the same logits) and every
+     variance mode and normalisation of the second (softargmax_phase,
+     heatmap_phase); the
      warp's forward, d_src and d_grid kernels at the warps of the
      taichi-64^2 train step (batch 32), random and identity
      (integer-coordinate) grids, f32 and bf16, the plans and cold times of
      all three, F.grid_sample's backward for the grid alone, the input
      alone and both; the three with scalar loads and with 64-bit offsets,
-     and d_src's 'global' variant and its 'shared' one past 48 KB of shared
-     memory at the 256^2 configs' skips (warp_edge_phase); the combine's
+     and d_src's 'bands' plan and its 'shared' one past 48 KB of shared
+     memory at the 256^2 configs' skips (warp_edge_phase); d_src twice on
+     the same inputs, bit for bit, at the taichi, configs/shapes.yaml,
+     configs/actions.yaml and shapes-256 train steps' shapes and on a
+     contracting grid (every point of a batch element in one cell), timed
+     there and at 'bands' (dsrc_order_phase); the combine's
      closed-form backward against autograd; the four kernels of the train
      loop at the shapes its steps give them (configs/shapes.yaml, batch
      16: the three warp kernels at C = 3 ... 128 over 64^2 ... 2^2, both
@@ -80,15 +87,14 @@ Phases, each of which raises on failure:
      memory and time, and a graphed remat step;
   8. data parallelism (parallel_phase): (a) over an explicit one-rank NCCL
      group whose all-reduces are captured in the step's graph: one graphed
-     step of configs/shapes.yaml equal to the unsharded step bit for bit
-     outside the appearance encoder (where d_src's f32 sums differ run to
-     run) and its gradients within train parity's limit inside it; phase 5's cut
+     step of configs/shapes.yaml equal to the unsharded step bit for bit,
+     and two unsharded steps equal to each other; phase 5's cut
      through train() over the group, launches as capture x replays with the
      captured all-reduces and a profiler trace of one replay, rank 0's rows,
      gifs and checkpoints; (b) two gloo ranks sharing the card at
      configs/actions.yaml's width, the batch of 32 as two slabs of 16, 2
      eager device-fed SGD steps in bf16 and f32 against one process at 32
-     (parameters within the train-parity limit, the first f32 update too,
+     (parameters within the train-parity limit, every f32 step's update too,
      running statistics, num_batches_tracked, launches a rank; a control
      with the batch's halves swapped), each rank's four train kernels
      held against their plain versions at its shapes; (c) frame-sharded eval
@@ -106,14 +112,20 @@ Phases, each of which raises on failure:
      config's path (the device feed, the step's CUDA graph), launches as
      capture x replays, rows from the file's `it`, Adam steps and rates
      after; (d) the command lines of the dataset tools, bg_removal and the
-     user study, each in a process of its own.
+     user study, each in a process of its own;
+ 10. configs/vox-full.yaml's transfer forward at 256^2, full width, random
+     weights and frames (vox_full_phase): its kernels at the path's shapes
+     against their plain versions, the kp detector and one generator call
+     card against CPU, TransferEngine in bf16 and f32 at chunk 32 over 64
+     driving frames and in bf16 at chunk 128, launches counted (the
+     soft-argmax all 'split'), frames/s and peak memory.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, where CUDA is missing or where the
 repository is not beside it. It imports nothing of JAX. `--only PHASE ...`
-(kernels, parity, main, loop, dispatch, parallel, jaxckpt) runs only those phases
-after the build and prints no result line.
+(kernels, parity, main, loop, dispatch, parallel, jaxckpt, vox_full) runs only
+those phases after the build and prints no result line.
 """
 
 from __future__ import annotations
@@ -405,8 +417,13 @@ def softargmax_phase(device, gen) -> dict:
     frame. Checked besides at K = 4 (configs/shapes.yaml), with peaked logits
     (randn x 30: at temperature 0.1 the max and the 1e-7 floor decide), on a
     frame that ends inside a sweep of the block, on one whose width leaves no
-    thread in a fixed column, and at 256^2 and at a frame
-    whose byte size is no multiple of 16, which take the 'plane' variant."""
+    thread in a fixed column, and at a frame whose byte size is no multiple
+    of 16, which takes the 'plane' variant. Then 'split' at
+    configs/vox-full.yaml's 256^2 x 10 (split_rows): a source's 2 frames and
+    a chunk of 32, f32 and bf16, random and peaked, each launched twice
+    (bit for bit), L2-warm and cold, beside the old 'plane' kernel on the
+    same logits (mk_softargmax_plane through a 'plane' plan) and the plain
+    version."""
     import torch
 
     from monkeynet_tpu_torch.ops.cuda import softargmax
@@ -460,14 +477,93 @@ def softargmax_phase(device, gen) -> dict:
                 ("peaked", (1, CHUNK, HW, HW, 10), 30.0, "staged", False),
                 ("ragged sweep", (1, 3, 22, 20, 10), 1.0, "staged", False),
                 ("moving column", (1, 3, 20, 36, 10), 1.0, "staged", False),
-                ("256^2", (1, 2, 256, 256, 10), 1.0, "plane", True),
                 ("odd bytes", (1, 5, 15, 15, 3), 1.0, "plane", False)):
             hm = (scale * torch.randn(*shape, generator=gen)).to(device, dtype)
             log(run(name, hm, variant, timed))
+        summary.update(split_rows(gen, dtype, tol, temperature, device))
     launched = {k: stats.launches_by_variant[k] - before[k] for k in before}
     if min(launched.values()) <= 0:
         raise AssertionError(f"softargmax: a variant was never launched: {launched}")
     log({"kernel": "softargmax", "launches_by_variant_in_phase": launched})
+    return summary
+
+
+def softargmax_exact(logits, temperature):
+    """The plain soft-argmax's arithmetic in f64 after the f32 quotient
+    x / T (what every version divides): softmax over the plane, the +1e-7
+    floor, the mean and the centred second moments on the f32 coordinate
+    grid, (B, D, K, 5). At 256^2 the f32 plain version is itself 3e-5 to
+    1.3e-4 from this on an H100 (sums of 65,536 terms in f32), more than the
+    kernel checks' 1e-5, so the 'split' frames are held against it, with the
+    plain version's own distance printed beside."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
+
+    B, D, H, W, K = logits.shape
+    y = (logits.float() / temperature).double().reshape(B, D, H * W, K)
+    p = torch.softmax(y, dim=2) + 1e-7
+    g = make_coordinate_grid((H, W), device=logits.device).double().reshape(H * W, 2)
+    mean = torch.einsum("bdpk,pc->bdkc", p, g)
+    d = g[None, None, :, None, :] - mean[:, :, None]
+    var = torch.einsum("bdpki,bdpkj,bdpk->bdkij", d, d, p)
+    return torch.cat([mean, var[..., 0, 0, None], var[..., 0, 1, None], var[..., 1, 1, None]],
+                     dim=-1)
+
+
+def split_rows(gen, dtype, tol, temperature, device) -> dict:
+    """softargmax_phase's 'split' rows at 256^2 x 10 in `dtype`: for 2 and
+    32 frames of random logits (and 2 of peaked ones, randn x 30), the
+    kernel against the plain version and twice bit for bit; timed L2-warm
+    and cold beside 'plane' on the same logits and the plain version."""
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import softargmax
+
+    stats = softargmax.softargmax_stats
+    suffix = "bf16" if dtype == torch.bfloat16 else "f32"
+    plane = softargmax.softargmax_plan(256, 256, 10, dtype, variant="plane")
+    summary = {}
+    for frames, scale in ((2, 1.0), (2, 30.0), (32, 1.0)):
+        hm = (scale * torch.randn(1, frames, 256, 256, 10, generator=gen)).to(device, dtype)
+        plan = softargmax.softargmax_plan(256, 256, 10, dtype, frames=frames)
+        if plan.variant != "split":
+            raise AssertionError(f"softargmax 256^2: planned {plan}, expected 'split'")
+        got = stats(hm, 0.1)
+        want = softargmax_exact(hm, temperature)
+        err = max_err(got, want)
+        check(f"softargmax split {frames} frames x{scale} {dtype}", err, tol)
+        _same_twice(f"softargmax split {frames} frames {dtype}", got, stats(hm, 0.1))
+        plane_err = max_err(softargmax.launch_softargmax(hm, 0.1, plane), want)
+        check(f"softargmax plane {frames} frames x{scale} {dtype}", plane_err, tol)
+        row = {"kernel": "softargmax", "case": f"256^2 split, {frames} frames, randn x {scale}",
+               "dtype": str(dtype), "shape": list(hm.shape), "plan": plan._asdict(),
+               "max_abs_err": err, "plane_max_abs_err": plane_err, "tol": tol,
+               "against": "softargmax_exact (f64)",
+               "plain_f32_max_abs_err": max_err(
+                   softargmax.softargmax_plain(hm, temperature), want),
+               "split_vs_plain_f32": max_err(got, softargmax.softargmax_plain(hm, temperature))}
+        if scale == 1.0:
+            nbytes = hm.numel() * hm.element_size() + frames * 10 * 5 * 4
+            copies = [hm.clone() for _ in range(cold_copies(nbytes))]
+            row.update({
+                "kernel_ms": time_ms(lambda: stats(hm, 0.1)),
+                "kernel_cold_ms": time_cold_ms([lambda x=x: stats(x, 0.1) for x in copies],
+                                               nbytes),
+                "plane_ms": time_ms(lambda: softargmax.launch_softargmax(hm, 0.1, plane)),
+                "plane_cold_ms": time_cold_ms(
+                    [lambda x=x: softargmax.launch_softargmax(x, 0.1, plane) for x in copies],
+                    nbytes),
+                "plain_ms": time_ms(lambda: softargmax.softargmax_plain(hm, 0.1)),
+                "library_ms": None, "bound_ms": bound_ms(nbytes, hm.numel() * 30)})
+            del copies
+            row["plane_over_split"] = row["plane_ms"] / row["kernel_ms"]
+            summary[f"softargmax_split_{suffix}_{frames}"] = {
+                "ms": row["kernel_ms"], "cold_ms": row["kernel_cold_ms"],
+                "plain_ms": row["plain_ms"], "library_ms": None, "err": err, "bytes": nbytes,
+                "flops": hm.numel() * 30, "plane_ms": row["plane_ms"],
+                "plane_cold_ms": row["plane_cold_ms"]}
+        log(row)
     return summary
 
 
@@ -621,7 +717,18 @@ def _check_warp_train(src, dout, grids, label: str) -> dict:
             check(f"{n} {label} {src.dtype} {list(shape)} {kind} grid", err,
                   _warp_tol(ref[n], rounded=bf16 and n != "warp_dgrid"))
             errs[f"{n}.{kind}"] = err
+        _same_twice(f"warp_dsrc {label} {src.dtype} {list(shape)} {kind} grid",
+                    got["warp_dsrc"], warp.warp_dsrc(grid, dout, shape))
     return errs
+
+
+def _same_twice(label: str, first, second) -> None:
+    """Two launches of a kernel on the same inputs must agree bit for bit."""
+    import torch
+
+    if not torch.equal(first, second):
+        raise AssertionError(f"{label}: two launches on the same inputs differ by "
+                             f"{max_err(first, second)}")
 
 
 def warp_train_phase(device) -> dict:
@@ -651,7 +758,6 @@ def warp_train_phase(device) -> dict:
                for n in names}
         for n in ("warp_dsrc", "warp_dgrid"):
             tot[n]["library_both_ms"] = None if bf16 else 0.0
-        tot["warp_dsrc"]["extra_bytes"] = 0.0
         tot["warp_train"]["ms_seven_shapes"] = 0.0
 
         for (C, h), in_path, dsrc_in_step, dgrid_in_step in zip(
@@ -668,8 +774,7 @@ def warp_train_phase(device) -> dict:
             work = {
                 "warp_train": (plane * es + n_pts * 8 + n_pts * C * es, n_pts * (C * 8 + 20)),
                 # grid and dout read once, the gradient written once in dout's
-                # dtype. The kernel's own extra traffic is no part of the
-                # bound: see dsrc_extra_bytes below
+                # dtype
                 "warp_dsrc": (n_pts * 8 + n_pts * C * es + plane * es, n_pts * (C * 8 + 20)),
                 "warp_dgrid": (plane * es + n_pts * 8 + n_pts * C * es + n_pts * 8,
                                n_pts * (C * 14 + 24)),
@@ -696,12 +801,7 @@ def warp_train_phase(device) -> dict:
                    "dsrc_plain_ms": time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape)),
                    "dgrid_plain_ms": time_ms(lambda: warp.warp_dgrid_plain(src, grid, dout)),
                    "library_fwd_ms": None, "library_dsrc_ms": None, "library_dgrid_ms": None,
-                   "library_bwd_ms": None,
-                   # what d_src moves beyond its bound: nothing for 'shared';
-                   # for 'global' the zero fill of its f32 buffer and, in
-                   # bf16, the cast's read of that buffer
-                   "dsrc_extra_bytes": 0 if dsrc_plan.variant == "shared"
-                   else plane * (8 if bf16 else 4)}
+                   "library_bwd_ms": None}
             del cold
             if not bf16:
                 # F.grid_sample's backward; its values are compared only on the
@@ -750,8 +850,6 @@ def warp_train_phase(device) -> dict:
                 tot[n]["bytes"] += work[n][0]
                 tot[n]["flops"] += work[n][1]
                 tot[n]["cold_ms"] += row[f"{key}_cold_ms"]
-                if n == "warp_dsrc":
-                    tot[n]["extra_bytes"] += row["dsrc_extra_bytes"]
                 if not bf16:
                     tot[n]["library_ms"] += row[f"library_{key}_ms"]
                     if n != "warp_train":
@@ -767,8 +865,8 @@ def warp_edge_phase(device) -> dict:
     element off 16 bytes at C = 64; C = 5 and 12, no multiple of the bf16
     pack, the first of the f32 one), the small forward with its plane read
     in place and staged from a misaligned plane, d_src at two skips of the
-    256^2 configs' train step (batch 20): 'global' at (128^2, 64), where no
-    slice fits a block, and 'shared' past 48 KB of shared memory at
+    256^2 configs' train step (batch 20): 'bands' at (128^2, 64), where no
+    slice of the whole plane fits a block, and 'shared' past 48 KB of shared memory at
     (64^2, 128), both dtypes, and 64-bit offsets (2^21 points of 1024 bf16
     channels, 2^31 elements of output and of dout, held against the plain
     version on the first and the last two rows of points; for d_src, dout
@@ -832,7 +930,7 @@ def warp_edge_phase(device) -> dict:
     result["dsrc_256"] = []
     for dtype in (torch.float32, torch.bfloat16):
         rounded = 2.0**-8 if dtype == torch.bfloat16 else 2e-5
-        for (C, h), want in (((64, 128), "global"), ((128, 64), "shared")):
+        for (C, h), want in (((64, 128), "bands"), ((128, 64), "shared")):
             shape = (20, h, h, C)
             dout = torch.randn(shape, generator=gen).to(device, dtype)
             grid = grid_off_integers(20, h, gen).to(device)
@@ -896,6 +994,111 @@ def warp_edge_phase(device) -> dict:
     result["launches_by_variant"] = launched
     log(result)
     return result
+
+
+def _contracting_grid(B, h, gen):
+    """A (B, h, h, 2) grid that puts every point of a batch element in one
+    cell: a pixel centre a batch element, plus noise of 1e-4 (a thousandth
+    of a pixel at 32^2)."""
+    import torch
+
+    centre = torch.floor(torch.rand(B, 1, 1, 2, generator=gen) * (h - 2)) + 0.5
+    grid = centre / (0.5 * (h - 1)) - 1.0
+    return (grid + 1e-4 * torch.rand(B, h, h, 2, generator=gen)).contiguous()
+
+
+def dsrc_order_phase(device) -> dict:
+    """d_src run twice on the same inputs must agree bit for bit: at the
+    taichi train step's five d_src shapes (batch 32), configs/shapes.yaml's
+    (batch 16) and configs/actions.yaml's (batch 32), the shapes-256 skips
+    (batch 20: 'bands' at (128^2, 64), 'shared' at (64^2, 128)), and a
+    contracting grid that puts every point of a batch element in one cell
+    (the taichi step's (32^2, 64)); f32 and bf16, random grids off the
+    integers. The 'bands' shape and the contracting grid are also held
+    against the plain version and timed L2-warm, 'bands' cold too with its
+    bound, its plain version and F.grid_sample's backward (f32) and on a
+    grid near the identity, the contracting grid beside a random grid at
+    its shape. Returns the 'bands' rows for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from monkeynet_tpu_torch.ops.cuda import warp
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    configs = {name: load_config(str(REPO / "configs" / f"{name}.yaml"))
+               for name in ("shapes", "actions")}
+    cases = [("taichi", TRAIN_BATCH, C, h) for (C, h), step in zip(WARP_SHAPES, DSRC_IN_STEP)
+             if step]
+    for name, config in configs.items():
+        cases += [(name, config["train_params"]["batch_size"], C, h)
+                  for C, h in config_warps(config, HW)[1:]]
+    cases += [("shapes-256", 20, 64, 128), ("shapes-256", 20, 128, 64)]
+    result, summary = {"phase": "dsrc_order", "same_twice": [], "timed": []}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        es = 2 if bf16 else 4
+        for label, B, C, h in cases + [("contracting", TRAIN_BATCH, 64, 32)]:
+            shape = (B, h, h, C)
+            dout = torch.randn(shape, generator=gen).to(device, dtype)
+            grid = (_contracting_grid(B, h, gen) if label == "contracting"
+                    else grid_off_integers(B, h, gen)).to(device)
+            plan = warp.dsrc_plan(B, h * h, C, dtype, True, (h, h))
+            first = warp.warp_dsrc(grid, dout, shape)
+            _same_twice(f"d_src {label} {dtype} {list(shape)}", first,
+                        warp.warp_dsrc(grid, dout, shape))
+            result["same_twice"].append([label, str(dtype), list(shape), plan.variant])
+            if label not in ("contracting", "shapes-256") or C != 64:
+                continue
+            ref = warp.warp_dsrc_plain(grid, dout.float(), shape)
+            err = max_err(first, ref)
+            check(f"d_src {label} {dtype} {list(shape)}", err, _warp_tol(ref, rounded=bf16))
+            row = {"kernel": "warp_dsrc", "case": label, "dtype": str(dtype),
+                   "shape": list(shape), "plan": plan._asdict(), "max_abs_err": err,
+                   "kernel_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape))}
+            if label == "contracting":
+                random = grid_off_integers(B, h, gen).to(device)
+                row["random_grid_ms"] = time_ms(lambda: warp.warp_dsrc(random, dout, shape))
+                row["points_a_cell"] = h * h
+            else:
+                # a flow near the identity, as training's deformations are
+                # (half a pixel of noise): a band's points then fill only a
+                # few of the chunks, and the rest are skipped
+                from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
+
+                near = (make_coordinate_grid((h, h))[None] + torch.rand(
+                    B, h, h, 2, generator=gen) / (h - 1)).contiguous().to(device)
+                row["near_identity_ms"] = time_ms(lambda: warp.warp_dsrc(near, dout, shape))
+                n_pts = B * h * h
+                nbytes = n_pts * 8 + 2 * n_pts * C * es
+                copies = [(grid.clone(), dout.clone()) for _ in range(cold_copies(nbytes))]
+                row["kernel_cold_ms"] = time_cold_ms(
+                    [lambda g=g, d=d: warp.warp_dsrc(g, d, shape) for g, d in copies], nbytes)
+                del copies
+                row["plain_ms"] = time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape))
+                row["library_ms"] = None
+                if not bf16:
+                    nchw = dout.new_zeros(B, C, h, h)
+                    d_nchw = dout.permute(0, 3, 1, 2)
+
+                    def library():
+                        image = nchw.detach().requires_grad_(True)
+                        out = F.grid_sample(image, grid, align_corners=True,
+                                            padding_mode="zeros")
+                        return torch.autograd.grad(out, [image], d_nchw)
+
+                    forward = time_ms(lambda: F.grid_sample(nchw, grid, align_corners=True,
+                                                            padding_mode="zeros"))
+                    row["library_ms"] = time_ms(library) - forward
+                summary[f"warp_dsrc_bands_{'bf16' if bf16 else 'f32'}"] = {
+                    "ms": row["kernel_ms"], "cold_ms": row["kernel_cold_ms"],
+                    "plain_ms": row["plain_ms"], "library_ms": row["library_ms"], "err": err,
+                    "bytes": nbytes, "flops": n_pts * (C * 8 + 20)}
+            log(row)
+            result["timed"].append(row)
+    log({"phase": "dsrc_order", "same_twice": len(result["same_twice"]),
+         "cases": result["same_twice"]})
+    return summary
 
 
 def combine_backward_phase(device, batch=TRAIN_BATCH, K1=11, label="taichi") -> dict:
@@ -1038,12 +1241,17 @@ def _kp_kernel_checks(label, config, size, frames, gen, device) -> list:
     rows = []
     for D in (frames, 1):
         logits = torch.randn(1, D, h, h, K, generator=gen).to(device)
-        err = max_err(softargmax.softargmax_stats(logits, kpp["temperature"]),
-                      softargmax.softargmax_plain(logits, temperature))
+        variant = softargmax.softargmax_plan(h, h, K, logits.dtype).variant
+        got = softargmax.softargmax_stats(logits, kpp["temperature"])
+        plain = softargmax.softargmax_plain(logits, temperature)
+        # 'split' frames against the plain arithmetic in f64 (softargmax_exact)
+        want = softargmax_exact(logits, temperature) if variant == "split" else plain
+        err = max_err(got, want)
         check(f"softargmax {label} {list(logits.shape)}", err, 1e-5)
         rows.append({"kernel": "softargmax", "config": label, "shape": list(logits.shape),
-                     "variant": softargmax.softargmax_plan(h, h, K, logits.dtype).variant,
-                     "max_abs_err": err, "tol": 1e-5})
+                     "variant": variant, "max_abs_err": err, "tol": 1e-5,
+                     "against": "softargmax_exact (f64)" if variant == "split" else "plain",
+                     "plain_f32_max_abs_err": max_err(plain, want)})
         mean = 1.8 * torch.rand(1, D, K, 2, generator=gen) - 0.9
         a = 0.1 * torch.randn(1, D, K, 2, 2, generator=gen)
         kp = {"mean": mean, "var": a @ a.transpose(-1, -2) + 0.005 * torch.eye(2)}
@@ -2589,10 +2797,11 @@ def dispatch_phase(work_dir: Path, smi: str, device="cuda") -> dict:
 # parameter by its gradient times the rate; every run's step j starts from
 # the one process's state before its step j. Other batch sizes give cuDNN
 # other algorithms, so the two cannot agree bit for bit. Held
-# (`parallel_refusals`): in f32 the first step's update, as the relative L2
-# gap of each network's whole update, to train parity's gradient limit (the
-# later steps' are printed: their start carries d_src's run-to-run order, and
-# there the control reads 7.5e-3 to 2.1e-2 from one call to the next); in both
+# (`parallel_refusals`): in f32 every step's update, as the relative L2 gap
+# of each network's whole update, to train parity's gradient limit (on an
+# H100 at 700 W the ranks read 7.3e-3 and 1.2e-2 to 1.6e-2 for the two
+# steps, the control 3.7e-3 and 1.1e-2 to 1.5e-2: cuDNN's algorithms are not
+# pinned here, so the second step moves from one call to the next); in both
 # dtypes the running statistics after each step and the metrics to train
 # parity's limits in f32 and to the bf16 limits below; and the ranks'
 # parameters and statistics equal bit for bit. The bf16 limits come from
@@ -2650,15 +2859,6 @@ def _step_state(trainer) -> dict:
     return out
 
 
-def _grad_rel_l2(a: dict, b: dict, prefix: str) -> float:
-    """Relative L2 gap of the gradients under `prefix` of two `_step_state`s."""
-    import torch
-
-    keys = sorted(k for k in b if k.startswith(prefix) and k.endswith(".grad"))
-    ga, gb = (torch.cat([s[k].double().flatten() for k in keys]) for s in (a, b))
-    return ((ga - gb).norm() / gb.norm()).item()
-
-
 def _gaps(a: dict, b: dict) -> dict:
     """{key: largest absolute difference} of the tensors not equal bit for bit."""
     import torch
@@ -2674,15 +2874,10 @@ def one_rank_nccl_phase(work_dir: Path, smi: str, device="cuda") -> dict:
 
     Exactness: one graphed step from the seed's weights on the cut's first
     plan, twice unsharded and once over the group (cuDNN deterministic).
-    An all-reduce over one rank and a division by 1.0 are exact, so the
-    group's metrics and every parameter, gradient, running statistic and
-    Adam moment must equal the unsharded step's bit for bit, except where
-    d_src's gradient lands: d_src adds a cell's points in the order its
-    atomics placed them, so the appearance encoder's gradients (the only
-    ones it feeds) differ run to run in f32 (two unsharded steps too), and
-    there the group's gradients are held to the train-parity limit
-    (scripts/train_determinism_probe.py: after more steps that order spreads
-    to every network).
+    An all-reduce over one rank and a division by 1.0 are exact, and d_src
+    adds in a fixed order, so the group's metrics and every parameter,
+    gradient, running statistic and Adam moment must equal the unsharded
+    step's bit for bit, and the two unsharded steps each other's.
 
     The loop: train() on the cut (512 videos, 2 epochs of 32 steps, k = 32)
     over the group: launches as the capture's per step x replays, the
@@ -2738,22 +2933,15 @@ def one_rank_nccl_phase(work_dir: Path, smi: str, device="cuda") -> dict:
     finally:
         torch.backends.cudnn.deterministic = deterministic
     del cache
-    encoder = "generator.appearance_encoder."
     spread = _gaps(step["unsharded_again"][1], step["unsharded"][1])
     reading = _gaps(step["nccl_one_rank"][1], step["unsharded"][1])
     exact = {
-        "metrics_equal": torch.equal(step["nccl_one_rank"][0], step["unsharded"][0]),
-        "tensors": len(reading) + sum(1 for key in step["unsharded"][1] if key not in reading),
-        "outside_encoder_differing": sorted(k for k in reading if not k.startswith(encoder)),
-        "outside_encoder_differing_unsharded": sorted(k for k in spread
-                                                      if not k.startswith(encoder)),
-        "encoder_max_gap": max(reading.values(), default=0.0),
-        "encoder_max_gap_unsharded": max(spread.values(), default=0.0),
-        "encoder_differing": len(reading), "encoder_differing_unsharded": len(spread),
-        "encoder_grad_rel_l2": _grad_rel_l2(step["nccl_one_rank"][1], step["unsharded"][1],
-                                            encoder),
-        "encoder_grad_rel_l2_unsharded": _grad_rel_l2(step["unsharded_again"][1],
-                                                      step["unsharded"][1], encoder),
+        "metrics_equal": torch.equal(step["nccl_one_rank"][0], step["unsharded"][0])
+        and torch.equal(step["unsharded_again"][0], step["unsharded"][0]),
+        "tensors": len(step["unsharded"][1]),
+        "differing": sorted(reading), "differing_unsharded": sorted(spread),
+        "max_gap": max(reading.values(), default=0.0),
+        "max_gap_unsharded": max(spread.values(), default=0.0),
     }
     del step
 
@@ -2790,22 +2978,16 @@ def one_rank_nccl_phase(work_dir: Path, smi: str, device="cuda") -> dict:
               "last_checkpoint_tensors_equal": final, "card": smi}
     log(result)
     log(f"parallel (a): one graphed step over a one-rank NCCL group: metrics equal "
-        f"{exact['metrics_equal']}, {len(exact['outside_encoder_differing'])} tensors outside "
-        f"the appearance encoder differ from the unsharded step (two unsharded steps: "
-        f"{len(exact['outside_encoder_differing_unsharded'])}); the encoder {exact['encoder_max_gap']:.3e}"
-        f" apart, its gradients {exact['encoder_grad_rel_l2']:.3e} relative L2 (two unsharded "
-        f"steps: {exact['encoder_max_gap_unsharded']:.3e}, "
-        f"{exact['encoder_grad_rel_l2_unsharded']:.3e})")
+        f"{exact['metrics_equal']}, {len(exact['differing'])} of {exact['tensors']} tensors "
+        f"differ from the unsharded step, {exact['max_gap']:.3e} apart (two unsharded steps: "
+        f"{len(exact['differing_unsharded'])}, {exact['max_gap_unsharded']:.3e})")
     log(f"parallel (a): train() over the group, launches {launches} (capture x {steps} "
         f"replays), {captured} all-reduces captured a step (x {steps} replays = "
         f"{captured * steps}); one replay's trace: {trace['launches']}, {trace['nccl']} NCCL "
         f"kernels; {steps / wall_s:.3f} steps/s over the loop's wall on {smi}")
-    if not exact["metrics_equal"] or exact["outside_encoder_differing"] \
-            or exact["outside_encoder_differing_unsharded"]:
+    if not exact["metrics_equal"] or exact["differing"] or exact["differing_unsharded"]:
         raise AssertionError(f"parallel (a): one step over the group is not the unsharded "
-                             f"step bit for bit outside the appearance encoder: {exact}")
-    check("parallel (a) the appearance encoder's gradients (relative L2)",
-          exact["encoder_grad_rel_l2"], PARITY_TOL["grad_rel_l2"])
+                             f"step bit for bit: {exact}")
     if captured != want_collectives:
         raise AssertionError(f"parallel (a): {captured} all-reduces captured a step, want "
                              f"{want_collectives}")
@@ -3012,14 +3194,14 @@ def _gloo_rank(rank: int, world: int, device, reference: str) -> dict:
 
 def parallel_refusals(cmps: list, dtype: str) -> list:
     """What phase 8 (b) refuses in the ranks' `_compare_parallel` entries of
-    `dtype`: a first update (f32: relative L2 of each network's whole
-    update, from the seed's weights), or a step's running statistics or
-    metrics, further from the one process's than PARALLEL_UPDATE_TOL /
-    PARALLEL_BN_TOL / PARALLEL_METRICS_TOL; or ranks whose parameters and
-    running statistics differ."""
+    `dtype`: a step's update (f32: relative L2 of each network's whole
+    update, each step from the one process's state before it), running
+    statistics or metrics further from the one process's than
+    PARALLEL_UPDATE_TOL / PARALLEL_BN_TOL / PARALLEL_METRICS_TOL; or ranks
+    whose parameters and running statistics differ."""
     out = []
     for rank, cmp in enumerate(cmps):
-        held = [("update", cmp["network_update_rel_l2"][:1], PARALLEL_UPDATE_TOL.get(dtype)),
+        held = [("update", cmp["network_update_rel_l2"], PARALLEL_UPDATE_TOL.get(dtype)),
                 ("running statistics", cmp["running_max_abs"], PARALLEL_BN_TOL[dtype]),
                 ("metrics", cmp["metrics_max_rel"], PARALLEL_METRICS_TOL[dtype])]
         for what, gaps, tol in held:
@@ -3696,9 +3878,135 @@ def jaxckpt_phase(work_dir: Path, smi: str, device="cuda") -> dict:
     return result
 
 
+# ---- phase 10 --------------------------------------------------------------
+
+VOX_FULL_FRAMES = 64
+VOX_FULL_CHUNK = 32
+VOX_FULL_BIG_CHUNK = 128
+VOX_FULL_PARITY_FRAMES = 2
+
+
+def vox_full_phase(smi: str, device="cuda") -> dict:
+    """configs/vox-full.yaml's transfer forward at 256^2 and full width as
+    shipped (num_kp 10, 32 / 1024 channels, a 7-block generator, dense motion
+    at scale_factor 1, the kp embedding at 0.25), random weights (seed 0)
+    and random frames: one source frame and VOX_FULL_FRAMES driving frames.
+
+    First its kernels at the shapes the path gives them, against their
+    plain versions (eval_kernel_phase at a 32-frame chunk: the warp at the
+    generator's 8 skips, f32 and bf16; the combine at 256^2 and 11 masks;
+    the soft-argmax, 'split', at (1, 32, 256^2, 10) and the source's (1, 1,
+    256^2, 10); the heatmaps at 256^2 and 64^2). Then the kp detector on
+    VOX_FULL_PARITY_FRAMES frames and one generator call from the card's
+    keypoints, card against CPU (PARITY_OUT_TOL). Then TransferEngine in
+    bf16 and f32 at chunk VOX_FULL_CHUNK, and in bf16 at VOX_FULL_BIG_CHUNK
+    over as many frames: launches counted (every soft-argmax 'split', none
+    'plane'), finite outputs, frames/s (median of 3 after a warm-up) and peak
+    memory, printed with the card."""
+    import copy
+
+    import torch
+
+    from monkeynet_tpu_torch.ops.cuda import softargmax
+    from monkeynet_tpu_torch.tasks.animate import TransferEngine
+    from monkeynet_tpu_torch.tasks.build import build_models
+    from monkeynet_tpu_torch.utils.config import load_config
+
+    config = load_config(str(REPO / "configs" / "vox-full.yaml"))
+    size = config["dataset_params"]["image_shape"][0]
+    kernels = eval_kernel_phase(device, chunks=[("vox-full", config, size, VOX_FULL_CHUNK)])
+    if {row["variant"] for row in kernels["kp"] if row["kernel"] == "softargmax"} != {"split"}:
+        raise AssertionError(f"vox-full: soft-argmax plans {kernels['kp']}")
+
+    # the card against the CPU, stage by stage, from one state
+    generator, kp_detector = build_models(config, device="cpu", seed=SEED)
+    _perturb_for_parity(generator, SEED + 1)
+    gen = torch.Generator().manual_seed(SEED + 20)
+    source = torch.rand(1, 1, size, size, 3, generator=gen)
+    driving = torch.rand(1, VOX_FULL_PARITY_FRAMES, size, size, 3, generator=gen)
+    card = {"generator": copy.deepcopy(generator).to(device),
+            "kp_detector": copy.deepcopy(kp_detector).to(device)}
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        kp = {dev: {"kp_driving": nets["kp_detector"](driving.to(dev)),
+                    "kp_source": nets["kp_detector"](source.to(dev))}
+              for dev, nets in (("cpu", {"kp_detector": kp_detector}), (device, card))}
+        on_card = {k: {n: v.to(device) for n, v in d.items()} for k, d in kp[device].items()}
+        on_cpu = {k: {n: v.cpu() for n, v in d.items()} for k, d in kp[device].items()}
+        outs = {"cpu": generator(source, on_cpu["kp_driving"], on_cpu["kp_source"]),
+                device: card["generator"](source.to(device), on_card["kp_driving"],
+                                          on_card["kp_source"])}
+    torch.cuda.synchronize()
+    parity_s = time.perf_counter() - t0
+    off_identity = max_err(outs["cpu"]["video_deformed"],
+                           source.expand_as(outs["cpu"]["video_deformed"]))
+    if off_identity < 0.05:
+        raise AssertionError(f"vox-full parity flow is the identity (max change {off_identity})")
+    parity = parity_errors(dict(outs[device], **kp[device]), dict(outs["cpu"], **kp["cpu"]),
+                           "vox-full")
+    del card, outs, generator, kp_detector
+
+    gen = torch.Generator().manual_seed(SEED + 21)
+    source = torch.rand(1, 1, size, size, 3, generator=gen).to(device)
+    driving = torch.rand(1, VOX_FULL_BIG_CHUNK, size, size, 3, generator=gen).to(device)
+    variants = softargmax.softargmax_stats.launches_by_variant
+    runs = []
+    for dtype, chunk, frames in ((torch.bfloat16, VOX_FULL_CHUNK, VOX_FULL_FRAMES),
+                                 (torch.float32, VOX_FULL_CHUNK, VOX_FULL_FRAMES),
+                                 (torch.bfloat16, VOX_FULL_BIG_CHUNK, VOX_FULL_BIG_CHUNK)):
+        generator, kp_detector = build_models(config, device=device, seed=SEED)
+        engine = TransferEngine(generator, kp_detector, chunk=chunk, dtype=dtype, device=device)
+        frames_in = driving[:, :frames]
+        engine(source, frames_in)  # warm-up: cuDNN plans, allocator
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = dict(variants)
+        out, launches, counted_s = _counted(
+            f"vox-full transfer {dtype} chunk {chunk}", smi,
+            expected_launches(config, frames, chunk), lambda: engine(source, frames_in))
+        by_variant = {k: variants[k] - before[k] for k in before}
+        if by_variant["plane"] or by_variant["split"] != launches["softargmax"]:
+            raise AssertionError(f"vox-full: soft-argmax launches by variant {by_variant}")
+        pred = out["video_prediction"]
+        if tuple(pred.shape) != (1, frames, size, size, 3) or not torch.isfinite(pred).all() \
+                or not torch.isfinite(out["video_deformed"]).all():
+            raise AssertionError(f"vox-full: bad outputs {tuple(pred.shape)}")
+        for group in ("kp_driving", "kp_norm", "kp_source"):
+            if not all(torch.isfinite(v).all() for v in out[group].values()):
+                raise AssertionError(f"vox-full: non-finite {group}")
+        peak = torch.cuda.max_memory_allocated()
+        del out, pred
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            engine(source, frames_in)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        times.sort()
+        runs.append({"dtype": str(dtype), "chunk": chunk, "frames": frames,
+                     "launches": launches, "softargmax_by_variant": by_variant,
+                     "counted_run_s": counted_s, "run_s": times,
+                     "frames_per_s_median": frames / times[1],
+                     "frames_per_s_best": frames / times[0], "peak_mem_gb": peak / 1e9})
+        log(dict(runs[-1], phase="vox_full_transfer", card=smi))
+        del engine, generator, kp_detector
+        torch.cuda.empty_cache()
+    result = {"phase": "vox_full", "config": "configs/vox-full.yaml", "size": size,
+              "parity_frames": VOX_FULL_PARITY_FRAMES, "parity_max_abs_err": parity,
+              "parity_tol": PARITY_OUT_TOL, "parity_s": parity_s,
+              "deformed_vs_source": off_identity, "transfer": runs, "card": smi}
+    log(result)
+    for run in runs:
+        log(f"vox-full transfer {run['dtype']} chunk {run['chunk']}: "
+            f"{run['frames_per_s_median']:.3f} frames/s (median of 3, {run['frames']} frames), "
+            f"peak {run['peak_mem_gb']:.3f} GB, launches {run['launches']} on {smi}")
+    result["launches"] = runs[0]["launches"]
+    return result
+
+
 def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                  loop_launches: dict, eval_launches: dict, actions_launches: dict,
-                 sharded_launches: dict, jaxckpt_launches: dict) -> dict:
+                 sharded_launches: dict, jaxckpt_launches: dict, vox_full_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; every path's counts are also
@@ -3708,7 +4016,8 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
     phase 7's loop on configs/actions.yaml, 90 steps through the graph;
     `parallel_launches`: phase 8's paths, `parallel_launches` above;
     `jaxckpt_launches`: phase 9's reconstruction and resumed train() from
-    each JAX package file).
+    each JAX package file; `vox_full_launches`: phase 10's bf16 transfer of
+    64 frames in chunks of 32 on configs/vox-full.yaml).
     Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
@@ -3720,7 +4029,8 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
         b_ms, b_by = bound_ms(s["bytes"], s["flops"])
         row = {"max_abs_err": s["err"], "ms": s["ms"], "plain_ms": s["plain_ms"],
                "bound_ms": b_ms, "bound_by": b_by, "library_ms": s["library_ms"]}
-        for key in ("cold_ms", "ms_seven_shapes", "library_both_ms", "extra_bytes"):
+        for key in ("cold_ms", "ms_seven_shapes", "library_both_ms", "plane_ms",
+                    "plane_cold_ms", "cold_bound_ms"):
             if key in s:  # cold_ms: the redesigned kernels, `ms` is L2-warm
                 row[key] = s[key]
         return row
@@ -3745,16 +4055,24 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                "parallel_launches": {path: launches[name]
                                      for path, launches in sharded_launches.items()},
                "jaxckpt_launches": {path: launches[name]
-                                    for path, launches in jaxckpt_launches.items()}}
+                                    for path, launches in jaxckpt_launches.items()},
+               "vox_full_launches": vox_full_launches[name]}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
             row["train"] = {"f32": numbers(summary["warp_train"]),
                             "bf16": numbers(summary["warp_train_bf16"])}
+        if name == "softargmax":
+            # the 'split' variant at configs/vox-full.yaml's 256^2 x 10, the
+            # source's 2 frames and a chunk of 32, with the old 'plane'
+            # kernel's times on the same logits
+            row["split"] = {f"{dtype}_{frames}_frames": numbers(summary[key])
+                            for dtype in ("f32", "bf16") for frames in (2, 32)
+                            for key in [f"softargmax_split_{dtype}_{frames}"]}
+        if name == "warp_dsrc":
+            row["bands"] = {dtype: numbers(summary[f"warp_dsrc_bands_{dtype}"])
+                            for dtype in ("f32", "bf16")}
         if name in ("warp_dsrc", "warp_dgrid"):
-            # extra_bytes (d_src): beyond the bound's bytes, the zero fill and,
-            # in bf16, the cast's read of the 'global' variant; 0 where every
-            # call is 'shared'
             leaf = "input" if name == "warp_dsrc" else "grid"
             row["library"] = (f"F.grid_sample backward with only the {leaf} requiring grad; "
                               "library_both_ms: both gradients in one call")
@@ -3771,7 +4089,8 @@ def full_f32() -> None:
     torch.set_float32_matmul_precision("highest")
 
 
-PHASES = ("kernels", "parity", "main", "loop", "dispatch", "parallel", "jaxckpt")
+PHASES = ("kernels", "parity", "main", "loop", "dispatch", "parallel", "jaxckpt",
+          "vox_full")
 
 
 def main(argv=None) -> int:
@@ -3807,7 +4126,8 @@ def main(argv=None) -> int:
     if only is not None:
         phases = {
             "kernels": lambda work: (kernel_phase("cuda"), warp_train_phase("cuda"),
-                                     warp_edge_phase("cuda"), combine_backward_phase("cuda"),
+                                     warp_edge_phase("cuda"), dsrc_order_phase("cuda"),
+                                     combine_backward_phase("cuda"),
                                      loop_kernel_phase("cuda"), eval_kernel_phase("cuda")),
             "parity": lambda work: (slice_parity(config), train_parity(config)),
             "main": lambda work: (main_path(config, torch.bfloat16),
@@ -3816,6 +4136,7 @@ def main(argv=None) -> int:
             "dispatch": lambda work: dispatch_phase(work, smi),
             "parallel": lambda work: parallel_launches(parallel_phase(work, smi)),
             "jaxckpt": lambda work: jaxckpt_phase(work, smi),
+            "vox_full": lambda work: vox_full_phase(smi),
         }
         for name in only:
             with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
@@ -3832,6 +4153,7 @@ def main(argv=None) -> int:
     summary = kernel_phase("cuda")
     summary.update(warp_train_phase("cuda"))
     warp_edge_phase("cuda")
+    summary.update(dsrc_order_phase("cuda"))
     combine_backward_phase("cuda")
     loop_kernel_phase("cuda")
     eval_kernel_phase("cuda")
@@ -3857,13 +4179,15 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
         jaxckpt = jaxckpt_phase(Path(work), smi)
     lap("jaxckpt")
+    vox_full = vox_full_phase(smi)
+    lap("vox_full")
     log({"phase": "seconds", **seconds})
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
     print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
                                   loop["launches"], evals["eval_launches"],
                                   dispatch["actions"]["launches"], sharded,
-                                  jaxckpt["launches"])), flush=True)
+                                  jaxckpt["launches"], vox_full["launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -12,7 +12,7 @@
 // plane in place uses 4 bytes (2 in bf16) of every 32-byte sector it pulls
 // from L2, K blocks pull the same sectors, and each of four passes pulls
 // them again: such a kernel is bound by L2-to-SM sector traffic, many times
-// the bytes of the bound. Two variants, chosen in Python from the shape
+// the bytes of the bound. Three variants, chosen in Python from the shape
 // (ops/cuda/softargmax.py: softargmax_plan):
 //
 //  * staged: one block owns one frame and all its K planes. The frame's
@@ -33,9 +33,19 @@
 //    pixels per sweep are a multiple of W (640 threads, K = 10, W = 64) a
 //    thread stays in one column: its x coordinate is hoisted out of the
 //    passes and only the row is walked.
+//  * split: for aligned frames too large for one block's shared memory
+//    (256x256x10, configs/vox-full.yaml's kp detector). Several blocks share
+//    a frame, each a band of rows with all K keypoints, read once from
+//    device memory as contiguous vectors of 4 elements, in one pass: each element
+//    slot of a thread keeps an online-softmax partial (its largest x / T,
+//    and the sums of e, e*g and e*g*g' under it), merged per keypoint over
+//    the block and then, in a second tiny kernel, over the frame's bands,
+//    always in the same order, so the result does not change from run to
+//    run. The +1e-7 floor's terms come from the grid's own sums, which the
+//    wrapper computes once for (H, W).
 //  * plane: one block per (frame, keypoint) plane, read in place with stride
-//    K, for frames that do not fit shared memory (256x256x10), frames whose
-//    byte size is no multiple of 16, and K with lcm(32, K) > 1024.
+//    K, for frames whose byte size is no multiple of 16 or that are
+//    misaligned, and K with no block size for the other two.
 //
 // Order of operations where the result hangs on it, as the plain version:
 // x / T is a division (at T = 0.1 and logits of +-30 an ulp of the quotient
@@ -57,7 +67,14 @@
 //    The floor stays in p for the second moments.
 // Sums are f32 in another order: per thread over sweeps, then over the
 // threads of a keypoint; with a fixed column, sum p * gx is gx * sum p per
-// thread.
+// thread. The split variant divides, exponentiates and forms coordinates
+// as the staged one does, but each e is exp(x/T - m) against its slot's
+// running max m, brought to the frame's max by a factor 2^(m - M) when
+// partials merge (exact where m and M are within a factor 2 of each other,
+// see Partial); and its second moments come
+// from raw sums, E[g g'] - E[g] E[g]', where the staged variant centres
+// each term: the difference cancels an ulp or two of E[g g'] <= 1, against
+// the kernel checks' 1e-5 (the error on the card is in PERF.md).
 //
 // On an NVIDIA H100 80GB HBM3 at 700 W the staged kernel takes 0.013 ms on a
 // 128-frame chunk of 64x64x10 f32 logits from L2 and 0.017 ms from device
@@ -357,6 +374,286 @@ __global__ void softargmax_plane_kernel(const T* __restrict__ logits, float* __r
   }
 }
 
+// ---- split: several blocks a frame, each a band of rows, merged in order --
+
+constexpr int kSplitUnroll = 4;  // vectors a thread loads at once, the next batch in flight
+constexpr int kSplitVec = 4;     // elements a vector: 16 bytes of f32, 8 of bf16
+constexpr int kSplitMaxThreads = 640;
+constexpr int kSplitStats = 7;   // a partial's floats: m and the six sums
+constexpr int kMergeWarps = 8;
+
+// One keypoint's online-softmax partial over some elements, in base 2: m,
+// the largest y * log2(e) met (y = x / T, the product rounded to f32), and
+// with e = 2^(y log2(e) - m) the sums of e, e*gx, e*gy, e*gx*gx, e*gx*gy
+// and e*gy*gy. Partials meet at the larger m by factors 2^(m - M) from the
+// f32 values of m themselves, so every term ends as 2^(y log2(e) - M) with
+// the one rounding of its fused multiply-add, whatever slot or band it was
+// summed in (a shift of m rounded apart from the m that merges would give
+// each slot's terms its own relative error, up to an ulp of y log2(e):
+// 4e-5 at |y| ~ 1000). An empty partial has m = -inf, sums 0.
+struct Partial {
+  float m, s[6];
+};
+
+__device__ __forceinline__ void partial_empty(Partial& p) {
+  p.m = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < 6; ++i) p.s[i] = 0.f;
+}
+
+// 2^(from - to) for from <= to, and 1 where both are the same (two empty
+// partials included, whose difference would be -inf - -inf).
+__device__ __forceinline__ float rescale_factor(float from, float to) {
+  return from == to ? 1.f : exp2_fast(from - to);
+}
+
+// a <- a merged with b: both brought to the larger m, sums added.
+__device__ __forceinline__ void partial_merge(Partial& a, const Partial& b) {
+  const float m = fmaxf(a.m, b.m);
+  const float fa = rescale_factor(a.m, m), fb = rescale_factor(b.m, m);
+#pragma unroll
+  for (int i = 0; i < 6; ++i) a.s[i] = a.s[i] * fa + b.s[i] * fb;
+  a.m = m;
+}
+
+// Merges the lanes' partials in a butterfly of shuffles, a fixed order: lane
+// 0 ends with the warp's merge.
+__device__ __forceinline__ void partial_warp_merge(Partial& a) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    Partial b;
+    b.m = __shfl_xor_sync(0xffffffffu, a.m, off);
+#pragma unroll
+    for (int i = 0; i < 6; ++i) b.s[i] = __shfl_xor_sync(0xffffffffu, a.s[i], off);
+    partial_merge(a, b);
+  }
+}
+
+// Pass 1 of 'split'. blockIdx.x = frame * bands + band: the band's rows
+// [band * rows, + rows) of one frame, all K keypoints, as vectors of V = 4
+// elements (16 bytes of f32, 8 of bf16: a partial is 7 registers, and eight
+// bf16 slots a thread would take 127 registers and halve the blocks an SM
+// holds). Thread t reads vectors t, t + NT, ... of the band (V * NT is a
+// multiple of K, so its element j always belongs to keypoint (V t + j) % K),
+// kSplitUnroll at a time with the next kSplitUnroll in flight, and keeps one
+// partial per element slot j, updated element by element: a y log2(e) above
+// the slot's m rescales its sums first. kFixedCol: V * NT / K pixels a
+// sweep are a multiple of W (640 threads at K = 10, W = 256), so a slot
+// stays in one column; it sums only e, e*gy and e*gy*gy, and its column's
+// gx gives the sums with gx at the end (e*gx = gx * sum e, and so on). The block's V * NT partials
+// go to shared memory, and a warp per keypoint merges the keypoint's slots:
+// lane l those at positions l, l + 32, ... in order, then the butterfly.
+// The band's partial of keypoint k goes to partials[(blockIdx.x * K + k) *
+// 7]: m and the six sums.
+template <typename T, bool kFixedCol>
+__global__ void __launch_bounds__(kSplitMaxThreads)
+softargmax_split_kernel(const T* __restrict__ logits, float* __restrict__ partials, int H, int W,
+                        int K, int rows, int bands, float temperature) {
+  constexpr int V = kSplitVec;
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* part = reinterpret_cast<float*>(smem_raw);  // V * NT partials of 7 floats
+  const int NT = blockDim.x, t = threadIdx.x;
+  const long long frame = blockIdx.x / bands;
+  const int band = (int)(blockIdx.x - frame * bands);
+  const int r0 = band * rows, rb = min(rows, H - r0);
+  const int nvec = (int)((long long)rb * W * K / V);
+  const Pack<T, V>* in = reinterpret_cast<const Pack<T, V>*>(
+      logits + (frame * H + r0) * (long long)W * K);
+
+  // slot j's pixel in sweep s: s * (V NT / K) + (V t + j) / K of the band
+  const int step = V * NT / K;
+  const float step_col = (float)(step % W), step_row = (float)(step / W), width = (float)W;
+  float col[V], row[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    const int p = (V * t + j) / K;
+    col[j] = (float)(p % W);
+    row[j] = (float)(r0 + p / W);
+  }
+  Partial acc[V];
+#pragma unroll
+  for (int j = 0; j < V; ++j) partial_empty(acc[j]);
+  const float rcp_t = 1.f / temperature;
+  const float sx = 2.f / (float)(W - 1), sy = 2.f / (float)(H - 1);
+
+  const int sweeps = (nvec + NT - 1) / NT;
+  auto load = [&](Pack<T, V>(&v)[kSplitUnroll], int s0) {
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+      const int i = (s0 + u) * NT + t;
+      if (i < nvec) v[u] = in[i];
+    }
+  };
+  Pack<T, V> v[kSplitUnroll];
+  load(v, 0);
+  for (int s0 = 0; s0 < sweeps; s0 += kSplitUnroll) {
+    Pack<T, V> next[kSplitUnroll];
+    if (s0 + kSplitUnroll < sweeps) load(next, s0 + kSplitUnroll);
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) {
+      if ((s0 + u) * NT + t < nvec) {
+#pragma unroll
+        for (int j = 0; j < V; ++j) {
+          Partial& a = acc[j];
+          const float y = divide(to_float(v[u].v[j]), temperature, rcp_t);
+          const float y2 = y * kLog2e;
+          if (y2 > a.m) {  // a new largest term: the sums so far shrink
+            const float f = rescale_factor(a.m, y2);
+#pragma unroll
+            for (int i = 0; i < 6; ++i)
+              if (!kFixedCol || i == 0 || i == 2 || i == 5) a.s[i] *= f;
+            a.m = y2;
+          }
+          const float e = exp2_fast(fmaf(y, kLog2e, -a.m));
+          const float gy = fmaf(row[j], sy, -1.f), egy = e * gy;
+          a.s[0] += e;
+          a.s[2] += egy;
+          a.s[5] = fmaf(egy, gy, a.s[5]);
+          if (!kFixedCol) {
+            const float gx = fmaf(col[j], sx, -1.f), egx = e * gx;
+            a.s[1] += egx;
+            a.s[3] = fmaf(egx, gx, a.s[3]);
+            a.s[4] = fmaf(egx, gy, a.s[4]);
+          }
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < V; ++j) {  // every slot moves a sweep on
+        row[j] += step_row;
+        if (!kFixedCol) {
+          col[j] += step_col;
+          if (col[j] >= width) {
+            col[j] -= width;
+            row[j] += 1.f;
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kSplitUnroll; ++u) v[u] = next[u];
+  }
+  if (kFixedCol) {
+#pragma unroll
+    for (int j = 0; j < V; ++j) {
+      const float gx = fmaf(col[j], sx, -1.f);
+      acc[j].s[1] = gx * acc[j].s[0];
+      acc[j].s[3] = gx * acc[j].s[1];
+      acc[j].s[4] = gx * acc[j].s[2];
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < V; ++j) {
+    float* o = part + (V * t + j) * kSplitStats;
+    o[0] = acc[j].m;
+#pragma unroll
+    for (int i = 0; i < 6; ++i) o[1 + i] = acc[j].s[i];
+  }
+  __syncthreads();
+  const int lane = t & 31, per = V * NT / K;  // a keypoint's slots
+  for (int k = t >> 5; k < K; k += NT >> 5) {
+    Partial a;
+    partial_empty(a);
+    for (int i = lane; i < per; i += 32) {
+      const float* o = part + (k + i * K) * kSplitStats;
+      Partial b;
+      b.m = o[0];
+#pragma unroll
+      for (int q = 0; q < 6; ++q) b.s[q] = o[1 + q];
+      partial_merge(a, b);
+    }
+    partial_warp_merge(a);
+    if (lane == 0) {
+      float* o = partials + ((long long)blockIdx.x * K + k) * kSplitStats;
+      o[0] = a.m;
+#pragma unroll
+      for (int q = 0; q < 6; ++q) o[1 + q] = a.s[q];
+    }
+  }
+}
+
+// The frame's grid sums that the +1e-7 floor brings in, fixed by (H, W):
+// sum gx, sum gy, sum gx^2, sum gy^2, sum gx*gy over the pixels, and H*W.
+struct GridSums {
+  float gx, gy, gxx, gyy, gxy, hw;
+};
+
+// Pass 2 of 'split': a warp per (frame, keypoint) merges the frame's band
+// partials (lane l bands l, l + 32, ..., then the butterfly) and lane 0
+// turns them into the statistics of p = e / S + 1e-7. With E[.] the sums
+// over S, whose p sum to 1, the mean is E[g] + 1e-7 sum g and the centred
+// moments are E[g g'] - E[g] E[g]' + (E[g] - mean)(E[g] - mean)' plus
+// 1e-7 sum (g - mean)(g - mean)', the last from the grid sums: moments
+// from raw sums, whose cancellation is an ulp of E[g g'] (PERF.md).
+__global__ void __launch_bounds__(32 * kMergeWarps)
+softargmax_merge_kernel(const float* __restrict__ partials, float* __restrict__ stats,
+                        long long tasks, int bands, int K, GridSums g) {
+  const long long task = (long long)blockIdx.x * kMergeWarps + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (task >= tasks) return;
+  const long long frame = task / K;
+  const int k = (int)(task - frame * K);
+  Partial a;
+  partial_empty(a);
+  for (int b = lane; b < bands; b += 32) {
+    const float* o = partials + ((frame * bands + b) * K + k) * kSplitStats;
+    Partial p;
+    p.m = o[0];
+#pragma unroll
+    for (int q = 0; q < 6; ++q) p.s[q] = o[1 + q];
+    partial_merge(a, p);
+  }
+  partial_warp_merge(a);
+  if (lane != 0) return;
+  const float inv = 1.f / a.s[0];
+  const float ex = a.s[1] * inv, ey = a.s[2] * inv;
+  const float mx = fmaf(1e-7f, g.gx, ex), my = fmaf(1e-7f, g.gy, ey);
+  const float cx = ex - mx, cy = ey - my;
+  const float vxx = fmaf(-ex, ex, a.s[3] * inv) + cx * cx +
+                    1e-7f * (g.gxx - 2.f * mx * g.gx + g.hw * mx * mx);
+  const float vxy = fmaf(-ex, ey, a.s[4] * inv) + cx * cy +
+                    1e-7f * (g.gxy - mx * g.gy - my * g.gx + g.hw * mx * my);
+  const float vyy = fmaf(-ey, ey, a.s[5] * inv) + cy * cy +
+                    1e-7f * (g.gyy - 2.f * my * g.gy + g.hw * my * my);
+  float* o = stats + task * 5;
+  o[0] = mx;
+  o[1] = my;
+  o[2] = vxx;
+  o[3] = vxy;
+  o[4] = vyy;
+}
+
+template <typename T>
+int launch_split(const void* logits, void* partials, void* stats, long long N, int H, int W,
+                 int K, float temperature, int threads, int rows, int shared_bytes,
+                 GridSums g, cudaStream_t s) {
+  constexpr int V = kSplitVec;
+  const int bands = (H + rows - 1) / rows;
+  if (threads <= 0 || threads > kSplitMaxThreads || threads % 32 != 0 || (V * threads) % K != 0 ||
+      rows <= 0 || ((long long)rows * W * K * sizeof(T)) % 16 != 0 ||
+      ((long long)H * W * K * sizeof(T)) % 16 != 0 || shared_bytes > kMaxDynamicShared ||
+      shared_bytes < V * threads * kSplitStats * 4 || N * bands > 2147483647LL)
+    return (int)cudaErrorInvalidValue;
+  const bool fixed_col = (V * threads / K) % W == 0;
+  const int err = fixed_col ? opt_in_shared_memory<softargmax_split_kernel<T, true>>()
+                            : opt_in_shared_memory<softargmax_split_kernel<T, false>>();
+  if (err) return err;
+  if (fixed_col)
+    softargmax_split_kernel<T, true><<<(unsigned)(N * bands), threads, shared_bytes, s>>>(
+        static_cast<const T*>(logits), static_cast<float*>(partials), H, W, K, rows, bands,
+        temperature);
+  else
+    softargmax_split_kernel<T, false><<<(unsigned)(N * bands), threads, shared_bytes, s>>>(
+        static_cast<const T*>(logits), static_cast<float*>(partials), H, W, K, rows, bands,
+        temperature);
+  const long long tasks = N * K;
+  softargmax_merge_kernel<<<(unsigned)((tasks + kMergeWarps - 1) / kMergeWarps),
+                            32 * kMergeWarps, 0, s>>>(static_cast<const float*>(partials),
+                                                      static_cast<float*>(stats), tasks, bands,
+                                                      K, g);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, bool kFixedCol>
 int launch_staged_as(const void* logits, void* stats, long long N, int H, int W, int K,
                   float temperature, int threads, int shared_bytes, cudaStream_t s) {
@@ -414,4 +711,26 @@ extern "C" int mk_softargmax_plane(const void* logits, void* stats, long long N,
     }
   }
   return (int)cudaGetLastError();
+}
+
+// partials: an f32 scratch of N * bands * K * 7 floats, bands = ceil(H / rows).
+// threads, rows and shared_bytes come from softargmax_plan: threads a
+// multiple of 32, at most 640, with 4 * threads a multiple of K (and with
+// 4 * threads / K a multiple of W, each slot in one column), rows * W * K elements a
+// whole number of 16 bytes, shared_bytes at least 112 * threads. g_*: the
+// grid sums of GridSums.
+extern "C" int mk_softargmax_split(const void* logits, void* partials, void* stats, long long N,
+                                   int H, int W, int K, float temperature, int dtype, int threads,
+                                   int rows, int shared_bytes, float g_x, float g_y, float g_xx,
+                                   float g_yy, float g_xy, float hw, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (N == 0) return (int)cudaGetLastError();
+  const GridSums g{g_x, g_y, g_xx, g_yy, g_xy, hw};
+  if (dtype == kFloat32)
+    return launch_split<float>(logits, partials, stats, N, H, W, K, temperature, threads, rows,
+                               shared_bytes, g, s);
+  if (dtype == kBFloat16)
+    return launch_split<__nv_bfloat16>(logits, partials, stats, N, H, W, K, temperature,
+                                       threads, rows, shared_bytes, g, s);
+  return (int)cudaErrorInvalidValue;
 }

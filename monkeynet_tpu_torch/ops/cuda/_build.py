@@ -47,6 +47,8 @@ _SIGNATURES = {
     "mk_combine_fwd": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "mk_softargmax_staged": (_P, _P, _L, _I, _I, _I, _F, _I, _I, _I, _P),
     "mk_softargmax_plane": (_P, _P, _L, _I, _I, _I, _F, _I, _P),
+    "mk_softargmax_split": (_P, _P, _P, _L, _I, _I, _I, _F, _I, _I, _I, _I, _F, _F, _F, _F, _F,
+                            _F, _P),
     "mk_heatmap_fwd": (_P, _P, _P, _L, _I, _I, _I, _F, _I, _F, _I, _I, _I, _P),
 }
 

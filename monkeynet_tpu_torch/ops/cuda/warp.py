@@ -18,16 +18,16 @@ both, so none of that carries over:
 - d_src: `dsrc_plan` picks 'shared' wherever a slice of one load's channels
   fits a block's shared memory: a block per (channel slice, batch element)
   bins the batch element's points by the cell of their top-left corner (a
-  counting sort with integer shared-memory atomics), then each thread
-  gathers `dout * w_corner` in f32 for the pixels it owns (one, or a 2 x 2
-  quad) from the cells around them and writes each value once, in dout's
-  dtype: one launch a call, and no f32 atomics, which sm_90 runs on shared
-  memory only as compare-and-swap loops. 'global' (planes too large
-  even for that) keeps a zeroed f32 buffer of the whole gradient, global
-  f32 atomics, and a cast to bf16 afterwards. Neither sums in a fixed order
-  (the points within a cell come in the order of the placement's atomics),
-  so two runs agree to f32 rounding of each pixel's sum (about 1e-6 of the
-  largest term), not bit for bit;
+  count with integer shared-memory atomics, a scan, and a placement in
+  point order by two warps), then each thread gathers `dout * w_corner` in
+  f32 for the pixels it owns (one, or a 2 x 2 quad) from the cells around
+  them and writes each value once, in dout's dtype: one launch a call, and
+  no f32 atomics, which sm_90 runs on shared memory only as
+  compare-and-swap loops. 'bands' (planes too large even for that) runs the
+  same kernel with each block owning a band of pixel rows of a slice and
+  binning only the points with a corner in its band. Both sum each pixel in
+  a fixed order (a cell's points in point order), so two runs agree bit for
+  bit;
 - d_grid: the right difference at integer coordinates, f32 throughout.
   `dgrid_plan` picks 'small' (one thread per point), 'grouped' (up to 32
   threads per point on 16-byte packs, a segmented shuffle sum) or 'split'
@@ -88,7 +88,7 @@ _DSRC_CHUNK = 1024
 _DSRC_MAX_THREADS = 512
 _DSRC_QUAD_ITEMS = 256
 _FWD_VARIANTS = ("small", "vector")
-_DSRC_VARIANTS = ("shared", "global")
+_DSRC_VARIANTS = ("shared", "bands")
 _DGRID_VARIANTS = ("small", "grouped", "split")
 
 
@@ -107,16 +107,17 @@ class WarpPlan(NamedTuple):
 class DsrcPlan(NamedTuple):
     """How csrc/warp_dsrc.cu runs one d_src call."""
 
-    variant: str  # 'shared' | 'global'
-    vector: int  # channels a load: a 16-byte pack or 1 ('shared'); 4 or 1 ('global')
-    channels: int  # channels a block owns ('shared'; the last slice may be narrower); C ('global')
-    lanes: int  # threads per tile ('shared'), a power of two; 1 ('global': a thread per load)
-    chunk: int  # points a 'shared' block bins at a time; 0 ('global')
-    tile: int  # pixels a side of what one 'shared' gather thread owns (1 or 2); 0 ('global')
+    variant: str  # 'shared' (a block owns every pixel row) | 'bands' (a band of them)
+    vector: int  # channels a load: a 16-byte pack or 1
+    channels: int  # channels a block owns (the last slice may be narrower)
+    lanes: int  # threads per tile, a power of two
+    chunk: int  # points a block bins at a time
+    tile: int  # pixels a side of what one gather thread owns (1 or 2)
     threads: int
-    blocks: tuple  # (x over the slices, or over one batch element's points ('global'), y = batch)
-    shared_bytes: int  # dsrc_shared_bytes ('shared'); 0 ('global')
+    blocks: tuple  # (x over (band, slice) pairs, band-major; y = batch element)
+    shared_bytes: int  # dsrc_shared_bytes
     index_bits: int
+    rows: int  # pixel rows a block owns: H ('shared') or a band's
 
 
 class DgridPlan(NamedTuple):
@@ -213,28 +214,38 @@ def dgrid_plan(B, N, C, dtype, aligned, source_pixels) -> DgridPlan:
     return DgridPlan(variant, vector, lanes, threads, blocks, index_bits)
 
 
-def dsrc_shared_bytes(H, W, channels, chunk, itemsize, plane):
-    """Dynamic shared memory of a 'shared' d_src block (shared_layout in
-    csrc/warp_dsrc.cu), each part in whole 16 bytes: the slice's f32 plane
-    (H x W x `channels`; only where `plane`, the points taking more than one
-    chunk), the chunk's dout slices (`chunk` x `channels` of `itemsize`
-    bytes), the binned points (16 bytes each), the start and cursor of each
-    of the (H + 1) x (W + 1) corner cells and one more start (the total),
-    and 32 warp totals."""
+def dsrc_shared_bytes(rows, W, channels, chunk, itemsize, plane):
+    """Dynamic shared memory of a d_src block that owns `rows` pixel rows of
+    width W (shared_layout in csrc/warp_dsrc.cu), each part in whole 16
+    bytes: the slice's f32 plane (rows x W x `channels`; only where `plane`,
+    the points taking more than one chunk), the chunk's dout slices (`chunk`
+    x `channels` of `itemsize` bytes), the binned points (16 bytes each), the
+    start, cursor and two placement masks of each of the (rows + 1) x (W + 1)
+    corner cells and one more start (the total), and 32 warp totals."""
     def r16(n):
         return -(-n // 16) * 16
 
-    cells = (H + 1) * (W + 1)
-    return r16((r16(H * W * channels * 4) if plane else 0) + r16(chunk * channels * itemsize)
-               + 16 * chunk + 4 * (2 * cells + 1 + 32))
+    cells = (rows + 1) * (W + 1)
+    return r16((r16(rows * W * channels * 4) if plane else 0) + r16(chunk * channels * itemsize)
+               + 16 * chunk + 4 * (4 * cells + 1 + 32))
+
+
+def _dsrc_rows(fits, H):
+    """The most pixel rows, at most H, for which `fits(rows)` holds (it holds
+    for fewer rows wherever it holds for more); 0 if not even one row fits."""
+    lo, hi = 0, H
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        lo, hi = (mid, hi) if fits(mid) else (lo, mid - 1)
+    return lo
 
 
 def dsrc_plan(B, N, C, dtype, aligned, source_hw) -> DsrcPlan:
     """Variant, load width, channels a block owns, threads per tile, points
-    binned at a time, gather tile and launch shape of the d_src kernel for
-    B x N points of dout (`dtype`, C channels) gathered into a (B, H, W, C)
-    gradient, (H, W) = `source_hw`. `aligned`: whether dout starts on 16 bytes (the
-    output is a fresh allocation, which does).
+    binned at a time, gather tile, rows a block owns and launch shape of the
+    d_src kernel for B x N points of dout (`dtype`, C channels) gathered into
+    a (B, H, W, C) gradient, (H, W) = `source_hw`. `aligned`: whether dout
+    starts on 16 bytes (the output is a fresh allocation, which does).
 
     'shared' wherever a slice of one load's channels fits the shared memory
     a block may use, with the points binned `_DSRC_CHUNK` at a time (or all
@@ -243,53 +254,63 @@ def dsrc_plan(B, N, C, dtype, aligned, source_hw) -> DsrcPlan:
     block takes more than half of that memory or the launch has fewer blocks
     than the card has SMs. Where all N points then fit one chunk in the
     shared memory a block may use, they are binned at once (no f32 plane,
-    one pass over the pixels). A gather thread owns a 2 x 2 quad of pixels
-    where the block has at least `_DSRC_QUAD_ITEMS` (quad, load) items, else
-    one pixel; a tile's loads are dealt to a power-of-two group of lanes,
-    128 to 512 threads a block. Otherwise 'global': a thread per (point, 4
-    channels, or 1 where C or the pointer does not allow a float4 atomic)."""
+    one pass over the pixels). Otherwise 'bands': a slice of 32 bytes of
+    channels (one load where that does not fit) over a band of as many pixel
+    rows as fit half of that memory (all of it where one row does not), the
+    points `_DSRC_CHUNK` at a time. A gather thread owns a 2 x 2 quad of
+    pixels where the block has at least `_DSRC_QUAD_ITEMS` (quad, load)
+    items, else one pixel; a tile's loads are dealt to a power-of-two group
+    of lanes, 128 to 512 threads a block."""
     H, W = source_hw
     vector = _pack(C, dtype, aligned)
     chunk = max(1, min(N, _DSRC_CHUNK))
-
-    def shared_bytes(channels, chunk):
-        return dsrc_shared_bytes(H, W, channels, chunk, dtype.itemsize, N > chunk)
-
-    if shared_bytes(vector, chunk) > MAX_DYNAMIC_SHARED:
-        vector = 4 if aligned and C % 4 == 0 else 1
-        blocks, index_bits = _launch(B, N, C, H * W, _THREADS, "warp_dsrc",
-                                     blocks_x=-(-N * (C // vector) // _THREADS))
-        return DsrcPlan("global", vector, C, 1, 0, 0, _THREADS, blocks, 0, index_bits)
     # a slice keeps at least a 32-byte sector of a pixel's channels where C
     # has them and it fits: narrower ones read dout and write the gradient in
     # part sectors
     sector = max(vector, min(C, 32 // dtype.itemsize))
 
-    def halve(channels):
-        if shared_bytes(channels, chunk) > MAX_DYNAMIC_SHARED:
-            return True
-        return channels > sector and (shared_bytes(channels, chunk) > _SLICE_MAX_BYTES
-                                      or B * -(-C // channels) < SMS)
+    def shared_bytes(channels, chunk, rows=H):
+        return dsrc_shared_bytes(rows, W, channels, chunk, dtype.itemsize, N > chunk)
 
-    channels = C
-    while channels > vector and halve(channels):
-        floor = sector if channels > sector else vector
-        channels = max(floor, -(-(channels // 2) // vector) * vector)
-    if N > chunk and shared_bytes(channels, N) <= MAX_DYNAMIC_SHARED:
-        chunk = N
+    rows = H
+    if shared_bytes(vector, chunk) <= MAX_DYNAMIC_SHARED:
+        variant = "shared"
+
+        def halve(channels):
+            if shared_bytes(channels, chunk) > MAX_DYNAMIC_SHARED:
+                return True
+            return channels > sector and (shared_bytes(channels, chunk) > _SLICE_MAX_BYTES
+                                          or B * -(-C // channels) < SMS)
+
+        channels = C
+        while channels > vector and halve(channels):
+            floor = sector if channels > sector else vector
+            channels = max(floor, -(-(channels // 2) // vector) * vector)
+        if N > chunk and shared_bytes(channels, N) <= MAX_DYNAMIC_SHARED:
+            chunk = N
+    else:
+        variant = "bands"
+        channels = sector if shared_bytes(sector, chunk, 1) <= MAX_DYNAMIC_SHARED else vector
+        budget = (_SLICE_MAX_BYTES if shared_bytes(channels, chunk, 1) <= _SLICE_MAX_BYTES
+                  else MAX_DYNAMIC_SHARED)
+        rows = _dsrc_rows(lambda r: shared_bytes(channels, chunk, r) <= budget, H)
+        if rows == 0:
+            raise ValueError(f"warp_dsrc: a row of {W} pixels of {channels} channels does not "
+                             f"fit a block's shared memory")
     packs = channels // vector
     lanes = min(_THREADS, _next_pow2(packs))
     # a gather thread owns a 2 x 2 quad of pixels where the block has enough
     # (quad, load) items for its threads, else one pixel: with few items a
     # quad's 9 cells make a longer chain than a pixel's 4
-    tile = 2 if -(-H // 2) * -(-W // 2) * packs >= _DSRC_QUAD_ITEMS else 1
+    tile = 2 if -(-rows // 2) * -(-W // 2) * packs >= _DSRC_QUAD_ITEMS else 1
     # a thread for each of the block's (tile, load) items, 128 to 512
-    tiles = -(-H // tile) * -(-W // tile)
+    tiles = -(-rows // tile) * -(-W // tile)
     threads = min(_DSRC_MAX_THREADS, max(128, _next_pow2(tiles * packs)))
     # the kernel's point index runs to one chunk past the last point
-    blocks, index_bits = _launch(B, N, C, H * W, chunk, "warp_dsrc", blocks_x=-(-C // channels))
-    return DsrcPlan("shared", vector, channels, lanes, chunk, tile, threads, blocks,
-                    shared_bytes(channels, chunk), index_bits)
+    blocks, index_bits = _launch(B, N, C, H * W, chunk, "warp_dsrc",
+                                 blocks_x=-(-C // channels) * -(-H // rows))
+    return DsrcPlan(variant, vector, channels, lanes, chunk, tile, threads, blocks,
+                    shared_bytes(channels, chunk, rows), index_bits, rows)
 
 
 def grid_sample(image, grid):
@@ -410,17 +431,16 @@ def _warp_forward(image, grid):
 
 
 def _launch_dsrc(grid, dout, out, image_shape, plan):
-    """Run the d_src kernel under `plan` into `out`: the gradient in dout's
-    dtype ('shared'), or an f32 buffer that the launcher zeroes ('global')."""
+    """Run the d_src kernel under `plan` into `out`, in dout's dtype."""
     B, H, W, C = image_shape
     lib = _build.library()
     with torch.cuda.device(dout.device):
         status = lib.mk_warp_dsrc(
             grid.data_ptr(), dout.data_ptr(), out.data_ptr(), B, H, W, C,
-            grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[dout.dtype],
-            _DSRC_VARIANTS.index(plan.variant), plan.vector, plan.channels,
-            plan.lanes.bit_length() - 1, plan.chunk, plan.tile, plan.threads, plan.blocks[0],
-            plan.shared_bytes, int(plan.index_bits == 64), _build.stream_of(dout),
+            grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[dout.dtype], plan.vector,
+            plan.channels, plan.lanes.bit_length() - 1, plan.chunk, plan.tile, plan.rows,
+            plan.threads, plan.blocks[0], plan.shared_bytes, int(plan.index_bits == 64),
+            _build.stream_of(dout),
         )
     _build.check_launch(status, f"warp_dsrc ({plan.variant})")
 
@@ -439,13 +459,11 @@ def warp_dsrc(grid, dout, image_shape):
         raise ValueError(f"warp_dsrc: grid {tuple(grid.shape)} does not match image {image_shape}")
     _check_dout(dout, grid, C, _build.DTYPE_CODES, "warp_dsrc")
     plan = dsrc_plan(B, grid.shape[1] * grid.shape[2], C, dout.dtype, _aligned(dout), (H, W))
-    # 'global' accumulates in an f32 buffer and casts it afterwards
-    dtype = dout.dtype if plan.variant == "shared" else torch.float32
-    out = torch.empty((B, H, W, C), dtype=dtype, device=dout.device)
+    out = torch.empty((B, H, W, C), dtype=dout.dtype, device=dout.device)
     _launch_dsrc(grid, dout, out, (B, H, W, C), plan)
     warp_dsrc.launches += 1
     warp_dsrc.launches_by_variant[plan.variant] += 1
-    return out.to(dout.dtype)
+    return out
 
 
 warp_dsrc.launches = 0

@@ -11,12 +11,10 @@ distributable, so both packages stand in their own:
   frames, in pixels.
 - **AED** with a frozen embedding network by default: the generator's
   `Encoder` architecture at fixed random weights, never trained, so AED
-  compares across checkpoints of one config. The JAX package draws those
-  weights at flax PRNGKey(0), which the port cannot draw without JAX: pass
-  them in as a state_dict (`variables`, made with
-  `utils/weights.from_jax_variables`) to compute the JAX package's AED;
-  without them the port draws its own at torch seed 0, and its AED then
-  compares only across runs of the port. `embedder="appearance"` embeds
+  compares across checkpoints of one config. The weights are the JAX
+  package's own, flax's draw at PRNGKey(0), which `utils/flax_init.py`
+  repeats bit for bit in numpy: the port's AED is the JAX package's.
+  `variables` (a state_dict) replaces them. `embedder="appearance"` embeds
   with the trained generator's own appearance encoder instead (a per-run
   signal: it moves with the model it evaluates).
 """
@@ -29,8 +27,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from monkeynet_tpu_torch.models.blocks import Encoder, init_parameters
+from monkeynet_tpu_torch.models.blocks import Encoder
 from monkeynet_tpu_torch.utils.device import require_device
+from monkeynet_tpu_torch.utils.flax_init import encoder_variables
+from monkeynet_tpu_torch.utils.weights import from_jax_variables
 
 
 def kp_to_pixels(mean: np.ndarray, image_shape) -> np.ndarray:
@@ -57,7 +57,7 @@ class EmbeddingExtractor:
     to one vector per frame.
 
     embedder="frozen" (default): an Encoder at `variables` (a state_dict),
-    or at weights drawn from torch seed 0 when none are given.
+    or at the JAX package's PRNGKey(0) weights when none are given.
     embedder="appearance": the trained generator's appearance encoder.
     """
 
@@ -73,13 +73,10 @@ class EmbeddingExtractor:
             channels = tuple(config["dataset_params"].get("image_shape", (64, 64, 3)))[2]
             encoder = Encoder(gp["block_expansion"], channels, gp["num_blocks"],
                               gp["max_features"])
-            if variables is not None:
-                encoder.load_state_dict(variables)
-            else:
-                init_parameters(encoder, torch.Generator().manual_seed(0))
-                print("AED: frozen embedder drawn at torch seed 0; its AED compares only "
-                      "across runs of the port (pass the JAX package's weights as "
-                      "`variables` for its AED)")
+            if variables is None:
+                variables = from_jax_variables(**encoder_variables(
+                    gp["block_expansion"], channels, gp["num_blocks"], gp["max_features"]))
+            encoder.load_state_dict(variables)
         else:
             raise ValueError(f"unknown AED embedder: {embedder!r}")
         self.embedder = embedder

@@ -3,16 +3,20 @@
 
     python3 scripts/dsrc_phase_probe.py [--reps 50]
 
-Builds four copies of monkeynet_tpu_torch/csrc/warp_dsrc.cu with nvcc, each
+Builds copies of monkeynet_tpu_torch/csrc/warp_dsrc.cu with nvcc, each
 with more of the kernel's phases cut out: `full`, `no_gather` (the gather
 from the binned points), `no_binning` (also the count, scan and placement)
 and `writes_only` (also the staging of dout in shared memory). What is left
-of the last one is the launch, the barriers and the output stores. At the
+of the last one is the launch, the barriers and the output stores. One more
+times the placement in point order: `atomic_placement` has in its place the
+placement by atomicAdd on each cell's cursor that the kernel had before, in
+no fixed order. At the
 five d_src shapes of the taichi-64^2 train step (batch 32), in f32 and bf16,
 each copy runs under the plan ops/cuda/warp.py picks and is timed L2-warm
 (chip_smoke.time_ms); the differences between neighbours are the phases'
 costs. Beside them, the time of a PyTorch zero fill of the same output. Only
-`full` computes the gradient, and it is held against the plain version.
+`full` and `atomic_placement` compute the gradient and are held against the
+plain version.
 Prints one JSON line per shape, then the card's name and power limit. Needs
 one CUDA card; rerun after a change to csrc/warp_dsrc.cu (the cuts are found
 by the comments and statements they start at, and the script stops if one is
@@ -49,12 +53,28 @@ def cut(text: str, span) -> str:
     return text[:i] + text[text.index(span[1], i):]
 
 
+# the placement in point order (one warp), and for timing it the placement
+# this kernel had before: a thread a point taking the slot an atomicAdd on
+# its cell's cursor returns (no fixed order)
+SWEEP = """    if (threadIdx.x < 64)
+      place_in_order(grid + 2 * q0, n, H, W, y_lo, Hb, cursor, masks, cells, binned);
+"""
+ATOMIC = """    for (int q = threadIdx.x; q < n; q += blockDim.x) {
+      const Taps tp = bilinear_taps(grid[2 * (q0 + q)], grid[2 * (q0 + q) + 1], H, W);
+      const int cell = corner_cell(tp, W, y_lo, Hb);
+      if (cell >= 0) binned[atomicAdd(cursor + cell, 1)] = Binned{tp.wx1, tp.wy1, q, 0};
+    }
+"""
+
+
 def variants(source: str) -> dict:
     no_gather = cut(source, GATHER)
-    if SCAN not in no_gather:
-        raise ValueError("dsrc_phase_probe: the scan's call is not in csrc/warp_dsrc.cu")
+    for text in (SCAN, SWEEP):
+        if text not in source:
+            raise ValueError(f"dsrc_phase_probe: {text.strip()!r} is not in csrc/warp_dsrc.cu")
     no_binning = cut(cut(no_gather, COUNT).replace(SCAN, ""), PLACE)
-    return {"full": source, "no_gather": no_gather, "no_binning": no_binning,
+    return {"full": source, "atomic_placement": source.replace(SWEEP, ATOMIC),
+            "no_gather": no_gather, "no_binning": no_binning,
             "writes_only": cut(no_binning, STAGE)}
 
 
@@ -110,14 +130,19 @@ def main() -> int:
                 def call(lib=lib):
                     status = lib.mk_warp_dsrc(
                         grid.data_ptr(), dout.data_ptr(), out.data_ptr(), *shape[:3], C, h * h,
-                        _build.DTYPE_CODES[dtype], 0, plan.vector, plan.channels,
-                        plan.lanes.bit_length() - 1, plan.chunk, plan.tile, plan.threads,
+                        _build.DTYPE_CODES[dtype], plan.vector, plan.channels,
+                        plan.lanes.bit_length() - 1, plan.chunk, plan.tile, plan.rows,
+                        plan.threads,
                         plan.blocks[0], plan.shared_bytes, int(plan.index_bits == 64),
                         torch.cuda.current_stream().cuda_stream)
                     _build.check_launch(status, f"warp_dsrc ({name})")
 
                 call()
-                if name == "full":
+                try:
+                    torch.cuda.synchronize()
+                except RuntimeError as err:
+                    raise RuntimeError(f"dsrc_phase_probe: the {name} copy failed") from err
+                if name in ("full", "atomic_placement"):
                     torch.cuda.synchronize()
                     ref = warp.warp_dsrc_plain(grid, dout.float(), shape)
                     tol = (2.0**-8 if dtype == torch.bfloat16 else 2e-5) * max(

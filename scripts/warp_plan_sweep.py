@@ -102,8 +102,8 @@ def main() -> int:
                     option = plan._replace(
                         channels=channels, threads=threads, tile=tile,
                         lanes=min(threads, 1 << (channels // plan.vector - 1).bit_length()),
-                        blocks=(-(-C // channels), B),
-                        shared_bytes=warp.dsrc_shared_bytes(h, h, channels, plan.chunk,
+                        blocks=(-(-C // channels) * -(-h // plan.rows), B),
+                        shared_bytes=warp.dsrc_shared_bytes(plan.rows, h, channels, plan.chunk,
                                                             dtype.itemsize, N > plan.chunk))
                     if option.shared_bytes > warp.MAX_DYNAMIC_SHARED:
                         continue

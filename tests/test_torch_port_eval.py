@@ -300,15 +300,18 @@ def test_embedding_extractor_matches_jax(shared, embedder):
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-6)
 
 
-def test_embedding_extractor_draws_its_own_frozen_weights(shared, capsys):
-    """Without weights the frozen embedder is drawn at torch seed 0, the same
-    every time, and says that its AED compares only across port runs."""
+def test_embedding_extractor_draws_its_own_frozen_weights(shared):
+    """Without weights the frozen embedder draws its own, the same every
+    time: the JAX package's PRNGKey(0) weights (utils/flax_init.py), so its
+    embeddings are those of the weights carried across from JAX."""
     config = shared["config"]
     video = np.random.RandomState(7).rand(1, 3, H, W, 3).astype(np.float32)
     first = tmetrics.EmbeddingExtractor(config, device="cpu")(video)
     second = tmetrics.EmbeddingExtractor(config, device="cpu")(video)
     np.testing.assert_array_equal(first, second)
-    assert "only across runs of the port" in capsys.readouterr().out
+    carried = tmetrics.EmbeddingExtractor(config, variables=shared["frozen_port"],
+                                          device="cpu")(video)
+    np.testing.assert_array_equal(first, carried)
     with pytest.raises(ValueError, match="requires the generator"):
         tmetrics.EmbeddingExtractor(config, embedder="appearance", device="cpu")
     with pytest.raises(ValueError, match="unknown AED embedder"):

@@ -74,13 +74,36 @@ def _staged_fits(H, W, K, dtype):
             and 4 * (elements + 3 * unit + 3 * K) <= 232_448)
 
 
+def _split_fits(H, W, K, dtype):
+    """Whether the split variant has a block size for K: a multiple of 32
+    within 640 threads whose vectors of 4 elements a sweep cover a multiple
+    of K elements, on a frame of whole 16 bytes."""
+    V = 4
+    return (H * W * K * dtype.itemsize) % 16 == 0 and 32 * K // math.gcd(K, 32 * V) <= 640
+
+
 def _check_softargmax_plan(H, W, K, dtype):
     plan = tsoft.softargmax_plan(H, W, K, dtype)
     if _staged_fits(H, W, K, dtype):
-        assert plan.variant == "staged"
+        assert plan.variant == "staged" and plan.rows == 0
         assert plan.threads % 32 == 0 and plan.threads % K == 0 and 0 < plan.threads <= 1024
         assert plan.shared_bytes == 4 * (H * W * K + 3 * plan.threads + 3 * K)
         assert plan.shared_bytes <= 232_448
+    elif _split_fits(H, W, K, dtype):
+        V = 4
+        assert plan.variant == "split"
+        assert plan.threads % 32 == 0 and (V * plan.threads) % K == 0
+        assert 0 < plan.threads <= 640 and plan.shared_bytes == 28 * V * plan.threads
+        # the most threads that keep each slot in one column, where some do
+        unit = 32 * K // math.gcd(K, 32 * V)
+        fixed = [t for t in range(unit, 641, unit) if (V * t // K) % W == 0]
+        assert plan.threads == (fixed[-1] if fixed else max(unit, 320 // unit * unit))
+        # a band is whole 16-byte vectors, and so the last, shorter, one too
+        assert 1 <= plan.rows <= H and (plan.rows * W * K * dtype.itemsize) % 16 == 0
+        # one frame in equal bands of about H / 132 rows, at least 4
+        step = 16 // math.gcd(W * K * dtype.itemsize, 16)
+        bands = max(1, round(H / max(4, H / 132)))
+        assert plan.rows == min(H, -(-H // bands // step) * step)
     else:
         assert plan == tsoft.SoftargmaxPlan("plane", 256, 0)
     return plan
@@ -91,16 +114,22 @@ def _check_softargmax_plan(H, W, K, dtype):
 def test_softargmax_plan_for_every_config(path, dtype):
     (H, W, K), _, _ = _config_shapes(path)
     plan = _check_softargmax_plan(H, W, K, dtype)
-    # the f32 tile of a frame decides, whatever the logits' dtype
-    assert (plan.variant == "staged") == (H * W * K * 4 <= 200_000)
+    # the f32 tile of a frame decides, whatever the logits' dtype: 'split'
+    # for vox-full's 256^2 x 10, 'staged' for every other config
+    assert plan.variant == ("staged" if H * W * K * 4 <= 200_000 else "split")
 
 
 def test_softargmax_plan_known_shapes():
     for dtype in DTYPES:
         # taichi, vox: 64^2 x 10, a thread per column (640 / 10 = 64 pixels a sweep)
-        assert tsoft.softargmax_plan(64, 64, 10, dtype) == ("staged", 640, 171_640)
-        # vox-full: 256^2 x 10 is 2.6 MB a frame
-        assert tsoft.softargmax_plan(256, 256, 10, dtype).variant == "plane"
+        assert tsoft.softargmax_plan(64, 64, 10, dtype) == ("staged", 640, 171_640, 0)
+        # vox-full: 256^2 x 10 is 2.6 MB a frame: 640 threads (a slot in one
+        # column: 256 pixels a sweep), equal bands about 256 * frames / 132
+        # rows high (at least 4: a source frame; a whole frame a block from
+        # about 132 frames up)
+        for frames, rows in ((1, 4), (2, 4), (32, 64), (128, 256), (200, 256)):
+            assert tsoft.softargmax_plan(256, 256, 10, dtype, frames=frames) == (
+                "split", 640, 71_680, rows)
         # a tensor that does not start on 16 bytes cannot be copied 16 bytes wide
         assert tsoft.softargmax_plan(64, 64, 10, dtype, aligned=False).variant == "plane"
     # 15 * 15 * 3 * 4 bytes is no multiple of 16; K = 33 has no block size
@@ -110,6 +139,32 @@ def test_softargmax_plan_known_shapes():
     assert tsoft.softargmax_plan(16, 16, 1, torch.bfloat16).variant == "staged"
     assert tsoft.softargmax_plan(3, 3, 8, torch.bfloat16).variant == "staged"
     assert tsoft.softargmax_plan(3, 3, 4, torch.bfloat16).variant == "plane"
+    # 'split' where asked for and the frame allows it, else a refusal
+    assert tsoft.softargmax_plan(32, 32, 3, torch.float32, variant="split") == (
+        "split", 576, 64_512, 4)
+    assert tsoft.softargmax_plan(20, 36, 10, torch.float32, variant="split") == (
+        "split", 320, 35_840, 4)
+    assert tsoft.softargmax_plan(256, 256, 10, torch.float32, variant="plane").variant == "plane"
+    with pytest.raises(ValueError, match="no 'split' plan"):
+        tsoft.softargmax_plan(15, 15, 3, torch.float32, variant="split")
+    with pytest.raises(ValueError, match="no 'split' plan"):
+        tsoft.softargmax_plan(16, 16, 33, torch.float32, variant="split")
+
+
+def test_grid_sums_are_the_floor_terms_of_the_plain_version():
+    """The floor's terms the split kernel adds: sum over the pixels of g and
+    g g' of the coordinate grid, against make_coordinate_grid in f64. The
+    kernel's f32 coordinates (one fused multiply-add each) sum to 4e-3, not
+    0, at 256^2; the floor multiplies each sum by 1e-7, so 1e-2 of a sum
+    moves a statistic by 1e-9."""
+    from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
+
+    for H, W in ((256, 256), (48, 32), (3, 5)):
+        g = make_coordinate_grid((H, W), dtype=torch.float64)
+        gx, gy = g[..., 0], g[..., 1]
+        want = [gx.sum(), gy.sum(), (gx * gx).sum(), (gy * gy).sum(), (gx * gy).sum(), H * W]
+        np.testing.assert_allclose(tsoft.grid_sums(H, W), [float(v) for v in want],
+                                   rtol=1e-6, atol=1e-2)
 
 
 @settings(max_examples=300, deadline=None)
@@ -343,6 +398,111 @@ def softargmax_mirror(logits, temperature):
     return stats.reshape(B, D, K, 5)
 
 
+def _exp2(a):
+    return _f32(torch.exp2(torch.from_numpy(_f32(a))).numpy())
+
+
+def _merge(am, as_, bm, bs):
+    """csrc/softargmax.cu partial_merge on arrays: (m, sums[..., 6])."""
+    m = np.maximum(am, bm)
+    with np.errstate(invalid="ignore"):
+        fa = np.where(am == m, np.float32(1.0), _exp2(_f32(am - m)))
+        fb = np.where(bm == m, np.float32(1.0), _exp2(_f32(bm - m)))
+    return m, _f32(_f32(as_ * fa[..., None]) + _f32(bs * fb[..., None]))
+
+
+def _lanes_then_butterfly(m, sums):
+    """Merge partials (..., n) and (..., n, 6) as a warp does: lane l takes
+    entries l, l + 32, ... in order, then the butterfly of shuffles; lane
+    0's result."""
+    n = m.shape[-1]
+    lanes = -(-n // 32) * 32
+    pm = np.concatenate([m, np.full(m.shape[:-1] + (lanes - n,), -np.inf, np.float32)], -1)
+    ps = np.concatenate([sums, np.zeros(sums.shape[:-2] + (lanes - n, 6), np.float32)], -2)
+    pm = pm.reshape(m.shape[:-1] + (lanes // 32, 32))
+    ps = ps.reshape(sums.shape[:-2] + (lanes // 32, 32, 6))
+    am = np.full(m.shape[:-1] + (32,), -np.inf, np.float32)
+    as_ = np.zeros(m.shape[:-1] + (32, 6), np.float32)
+    for c in range(lanes // 32):
+        am, as_ = _merge(am, as_, pm[..., c, :], ps[..., c, :, :])
+    lane = np.arange(32)
+    for off in (16, 8, 4, 2, 1):
+        am, as_ = _merge(am, as_, am[..., lane ^ off], as_[..., lane ^ off, :])
+    return am[..., 0], as_[..., 0, :]
+
+
+def softargmax_split_mirror(logits, temperature, plan):
+    """The split kernels' order of operations on (B, D, H, W, K) logits
+    (numpy f32, or bf16 values held in f32) under `plan` -> (B, D, K, 5)
+    f32: per band of plan.rows rows, each thread's 4 element slots (a
+    vector of 4 elements) updated element by element with a running max of
+    y log2(e) (where a slot stays in one column, only the sums without gx,
+    those with gx from the column at the end), the block's slots of a
+    keypoint merged by a warp, the frame's bands by another, then the
+    statistics with the floor's grid sums."""
+    B, D, H, W, K = logits.shape
+    N, V, NT = B * D, 4, plan.threads
+    x = _divide(_f32(logits).reshape(N, H, W * K), temperature)
+    sx, sy = np.float32(2.0) / np.float32(W - 1), np.float32(2.0) / np.float32(H - 1)
+    band_m, band_s = [], []
+    for r0 in range(0, H, plan.rows):
+        rb = min(plan.rows, H - r0)
+        y = x[:, r0:r0 + rb].reshape(N, -1)
+        n = y.shape[1]
+        sweeps = -(-n // (V * NT))
+        e_idx = np.arange(sweeps * NT * V).reshape(sweeps, NT, V)
+        valid = e_idx < n
+        y = np.pad(y, ((0, 0), (0, sweeps * NT * V - n))).reshape(N, sweeps, NT, V)
+        pixel = np.minimum(e_idx, n - 1) // K
+        gx = _fma(_f32(pixel % W), sx, np.float32(-1.0))
+        gy = _fma(_f32(r0 + pixel // W), sy, np.float32(-1.0))
+        fixed_col = (V * NT // K) % W == 0  # each slot in one column
+        m = np.full((N, NT, V), -np.inf, np.float32)
+        sums = np.zeros((N, NT, V, 6), np.float32)
+        for s in range(sweeps):
+            ys, ok = y[:, s], valid[s]
+            y2 = _f32(ys * LOG2E)  # the running max is kept in base 2
+            new = ok & (y2 > m)
+            with np.errstate(invalid="ignore", over="ignore"):
+                f = np.where(new, _exp2(np.where(new, m - y2, 0)), np.float32(1.0))
+            sums = _f32(sums * f[..., None])
+            m = np.where(new, y2, m)
+            e = _exp2(_fma(ys, LOG2E, -m))
+            egx, egy = _f32(e * gx[s]), _f32(e * gy[s])
+            upd = np.stack([_f32(sums[..., 0] + e), _f32(sums[..., 1] + egx),
+                            _f32(sums[..., 2] + egy), _fma(egx, gx[s], sums[..., 3]),
+                            _fma(egx, gy[s], sums[..., 4]), _fma(egy, gy[s], sums[..., 5])], -1)
+            if fixed_col:  # e*gx terms come from the column's gx at the end
+                upd[..., [1, 3, 4]] = 0
+            sums = np.where(ok[..., None], upd, sums)
+        if fixed_col:
+            sums[..., 1] = _f32(gx[0] * sums[..., 0])
+            sums[..., 3] = _f32(gx[0] * sums[..., 1])
+            sums[..., 4] = _f32(gx[0] * sums[..., 2])
+        # slot u = V t + j holds keypoint u % K; keypoint k's slots k + K i
+        m, sums = m.reshape(N, NT * V), sums.reshape(N, NT * V, 6)
+        per = NT * V // K
+        km = m.reshape(N, per, K).transpose(0, 2, 1)
+        ks = sums.reshape(N, per, K, 6).transpose(0, 2, 1, 3)
+        bm, bs = _lanes_then_butterfly(km, ks)
+        band_m.append(bm)
+        band_s.append(bs)
+    m, sums = _lanes_then_butterfly(np.stack(band_m, -1), np.stack(band_s, -2))
+    g1x, g1y, g2x, g2y, gxy, hw = (np.float32(v) for v in tsoft.grid_sums(H, W))
+    inv = np.float32(1.0) / sums[..., 0]
+    ex, ey = _f32(sums[..., 1] * inv), _f32(sums[..., 2] * inv)
+    mx, my = _fma(np.float32(1e-7), g1x, ex), _fma(np.float32(1e-7), g1y, ey)
+    cx, cy = _f32(ex - mx), _f32(ey - my)
+    floor = np.float32(1e-7)
+    vxx = _fma(-ex, ex, _f32(sums[..., 3] * inv)) + cx * cx + floor * (
+        g2x - 2 * mx * g1x + hw * mx * mx)
+    vxy = _fma(-ex, ey, _f32(sums[..., 4] * inv)) + cx * cy + floor * (
+        gxy - mx * g1y - my * g1x + hw * mx * my)
+    vyy = _fma(-ey, ey, _f32(sums[..., 5] * inv)) + cy * cy + floor * (
+        g2y - 2 * my * g1y + hw * my * my)
+    return _f32(np.stack([mx, my, vxx, vxy, vyy], -1)).reshape(B, D, K, 5)
+
+
 SOFTARGMAX_CASES = {
     # name: (shape, scale of the randn logits, bf16 logits)
     "fixed column": ((2, 3, 16, 16, 10), 1.0, False),
@@ -379,6 +539,46 @@ def test_softargmax_kernel_order_matches_plain_jnp_and_pallas(case):
     np.testing.assert_allclose(got, stats_of(ref), atol=1e-5, rtol=0)
     pallas = gaussian2kp_pallas(j_logits, 0.1, "matrix", interpret=True)
     np.testing.assert_allclose(got, stats_of(pallas), atol=1e-5, rtol=0)
+    assert np.isfinite(got).all() and (got[..., 2] > 0).all() and (got[..., 4] > 0).all()
+
+
+SPLIT_CASES = {
+    # name: (shape, rows a band, scale of the randn logits, bf16 logits)
+    "32^2 K=3": ((1, 2, 32, 32, 3), 5, 1.0, False),
+    "48^2 K=10": ((1, 2, 48, 48, 10), 7, 1.0, False),
+    "48^2 K=10 peaked": ((2, 1, 48, 48, 10), 16, 30.0, False),
+    "32^2 K=10 bf16": ((1, 2, 32, 32, 10), 6, 1.0, True),
+    "48^2 K=3 bf16 peaked": ((1, 2, 48, 48, 3), 48, 30.0, True),
+    "moving column": ((1, 2, 20, 36, 10), 6, 1.0, False),
+    "moving column bf16 peaked": ((2, 1, 20, 36, 10), 20, 30.0, True),
+}
+
+
+@pytest.mark.parametrize("case", list(SPLIT_CASES))
+def test_softargmax_split_order_matches_plain_jnp_and_pallas(case):
+    """The split variant's band partition and merge order (forced through
+    the plan at sizes 'staged' would take, with bands of a few rows, the
+    last one shorter), against the plain version, the JAX package's jnp
+    form and its Pallas kernel in interpret mode, tolerance 1e-5."""
+    from monkeynet_tpu.ops.pallas.softargmax import gaussian2kp_pallas
+
+    shape, rows, scale, bf16 = SPLIT_CASES[case]
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    plan = tsoft.softargmax_plan(*shape[2:], dtype, variant="split")._replace(rows=rows)
+    logits = (np.random.RandomState(12).randn(*shape) * scale).astype(np.float32)
+    t_logits = torch.from_numpy(logits).to(dtype)
+    logits = t_logits.float().numpy()
+    got = softargmax_split_mirror(logits, 0.1, plan)
+    plain = tsoft.softargmax_plain(t_logits, 0.1).numpy()
+    np.testing.assert_allclose(got, plain, atol=1e-5, rtol=0)
+    j_logits = jnp.asarray(logits)
+    ref = jgauss.gaussian2kp(jgauss.spatial_softmax(j_logits, 0.1), "matrix")
+    pallas = gaussian2kp_pallas(j_logits, 0.1, "matrix", interpret=True)
+    for kp in (ref, pallas):
+        var = np.asarray(kp["var"], np.float32)
+        want = np.concatenate([np.asarray(kp["mean"], np.float32), var[..., 0, :1],
+                               var[..., 0, 1:], var[..., 1, 1:]], axis=-1)
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
     assert np.isfinite(got).all() and (got[..., 2] > 0).all() and (got[..., 4] > 0).all()
 
 
