@@ -7,7 +7,8 @@ Phases, each of which raises on failure:
   1. build every CUDA kernel from monkeynet_tpu_torch/csrc/ (nvcc, sm_90a);
   2. per kernel, the kernel against its plain PyTorch version on the card,
      with times for the kernel, the plain version and, for the warp,
-     F.grid_sample and its backward: the four forward kernels at the shapes
+     F.grid_sample and its backward (in both dtypes, the grid in the
+     input's dtype as F.grid_sample requires): the four forward kernels at the shapes
      of the taichi-64^2 transfer (chunk of 128 frames), the warp forward,
      soft-argmax and heatmap also L2-cold, the warp on random and identity
      grids with its launch plan, the soft-argmax and heatmap at the source
@@ -77,7 +78,7 @@ Phases, each of which raises on failure:
      host pipeline with scipy's exact rotation in place of cv2's
      fixed-point one); (b) the step's CUDA graph against eager steps at
      actions width, bf16 and f32, 4 device-fed steps from one state, and a
-     rate milestone inside the chunk; (c) train() on configs/actions.yaml as
+     rate milestone inside the chunk, cuDNN's algorithms pinned; (c) train() on configs/actions.yaml as
      shipped, cut to 90 epochs (3 dispatches of k = 30), with the device
      feed, launches by capture x replays and by the profiler, rows, gif,
      checkpoints, the exit checkpoint reloaded into an eager Trainer, the
@@ -93,7 +94,7 @@ Phases, each of which raises on failure:
      captured all-reduces and a profiler trace of one replay, rank 0's rows,
      gifs and checkpoints; (b) two gloo ranks sharing the card at
      configs/actions.yaml's width, the batch of 32 as two slabs of 16, 2
-     eager device-fed SGD steps in bf16 and f32 against one process at 32
+     eager device-fed SGD steps in bf16 and f32 (cuDNN pinned) against one process at 32
      (parameters within the train-parity limit, every f32 step's update too,
      running statistics, num_batches_tracked, launches a rank; a control
      with the batch's halves swapped), each rank's four train kernels
@@ -118,14 +119,20 @@ Phases, each of which raises on failure:
      against their plain versions, the kp detector and one generator call
      card against CPU, TransferEngine in bf16 and f32 at chunk 32 over 64
      driving frames and in bf16 at chunk 128, launches counted (the
-     soft-argmax all 'split'), frames/s and peak memory.
+     soft-argmax all 'split'), frames/s and peak memory;
+ 11. the port's benchmark (bench_phase): `python -m monkeynet_tpu_torch.bench`
+     in a process of its own, its JSON line logged and checked (every key of
+     bench.py's line, finite rates above 0, the card's name, each kernel's
+     launches per 512-frame transfer pass and per train step, its FLOP
+     counts against a count from the layers' shapes made here), and its
+     `loader` mode on configs/actions.yaml.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, where CUDA is missing or where the
 repository is not beside it. It imports nothing of JAX. `--only PHASE ...`
-(kernels, parity, main, loop, dispatch, parallel, jaxckpt, vox_full) runs only
-those phases after the build and prints no result line.
+(kernels, parity, main, loop, dispatch, parallel, jaxckpt, vox_full, bench) runs
+only those phases after the build and prints no result line.
 """
 
 from __future__ import annotations
@@ -273,6 +280,22 @@ def check(name: str, err: float, tol: float) -> None:
         raise AssertionError(f"{name}: max abs error {err} exceeds tolerance {tol}")
 
 
+@contextlib.contextmanager
+def _cudnn_pinned():
+    """cuDNN picks the same deterministic algorithms in every call (no
+    autotuning): each run of the same step on the same inputs is then the
+    same computation, so runs compared with each other differ only where
+    the program does, and readings repeat from call to call."""
+    import torch
+
+    saved = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = True, False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = saved
+
+
 # ---- phase 1 ---------------------------------------------------------------
 
 def build_kernels() -> float:
@@ -340,7 +363,7 @@ def kernel_phase(device) -> dict:
         bf16 = dtype == torch.bfloat16
         es = 2 if bf16 else 4
         tot = {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0, "bytes": 0.0, "flops": 0.0,
-               "err": 0.0, "library_ms": None if bf16 else 0.0, "ms_seven_shapes": 0.0}
+               "err": 0.0, "library_ms": 0.0, "ms_seven_shapes": 0.0}
         for (src, grid, ident), in_path in zip(_warp_cases(device, gen), WARP_IN_PATH):
             src = src.to(dtype)
             B, H, W, C = src.shape
@@ -364,14 +387,16 @@ def kernel_phase(device) -> dict:
                 "library_ms": None,
             }
             del copies
+            nchw = src.permute(0, 3, 1, 2)
+            # F.grid_sample takes the grid in the input's dtype: in bf16 it
+            # samples at a bf16 grid, so only its time is kept
+            lgrid = grid.to(dtype)
+            lib = F.grid_sample(nchw, lgrid, align_corners=True, padding_mode="zeros")
+            row["library_err"] = max_err(lib.permute(0, 2, 3, 1), warp.grid_sample(src, grid))
             if not bf16:
-                nchw = src.permute(0, 3, 1, 2)
-                lib = F.grid_sample(nchw, grid, align_corners=True, padding_mode="zeros")
-                row["library_err"] = max_err(lib.permute(0, 2, 3, 1),
-                                             warp.grid_sample(src, grid))
                 check(f"F.grid_sample vs plain C={C}", row["library_err"], 1e-5)
-                row["library_ms"] = time_ms(lambda: F.grid_sample(
-                    nchw, grid, align_corners=True, padding_mode="zeros"))
+            row["library_ms"] = time_ms(lambda: F.grid_sample(
+                nchw, lgrid, align_corners=True, padding_mode="zeros"))
             log(row)
             tot["ms_seven_shapes"] += row["kernel_ms"]
             tot["err"] = max(tot["err"], *errs.values())
@@ -382,8 +407,7 @@ def kernel_phase(device) -> dict:
             tot["plain_ms"] += row["plain_ms"]
             tot["bytes"] += nbytes
             tot["flops"] += n * (C * 8 + 20)  # 4 taps x (mul + add) per channel + coords
-            if not bf16:
-                tot["library_ms"] += row["library_ms"]
+            tot["library_ms"] += row["library_ms"]
         summary["warp_bf16" if bf16 else "warp"] = tot
 
     # combine (f32): mask logits, displacement table and correction of a chunk
@@ -754,10 +778,10 @@ def warp_train_phase(device) -> dict:
         bf16 = dtype == torch.bfloat16
         es = 2 if bf16 else 4
         tot = {n: {"ms": 0.0, "cold_ms": 0.0, "plain_ms": 0.0,
-                   "library_ms": None if bf16 else 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
+                   "library_ms": 0.0, "bytes": 0.0, "flops": 0.0, "err": 0.0}
                for n in names}
         for n in ("warp_dsrc", "warp_dgrid"):
-            tot[n]["library_both_ms"] = None if bf16 else 0.0
+            tot[n]["library_both_ms"] = 0.0
         tot["warp_train"]["ms_seven_shapes"] = 0.0
 
         for (C, h), in_path, dsrc_in_step, dgrid_in_step in zip(
@@ -803,24 +827,26 @@ def warp_train_phase(device) -> dict:
                    "library_fwd_ms": None, "library_dsrc_ms": None, "library_dgrid_ms": None,
                    "library_bwd_ms": None}
             del cold
+            # F.grid_sample's backward, in both dtypes (the grid in the
+            # input's dtype, as it requires); its values are compared only in
+            # f32, on the grid that avoids integers
+            nchw = src.permute(0, 3, 1, 2)
+            d_nchw = dout.permute(0, 3, 1, 2)
+            grid_lib = grid.to(dtype)
+
+            def library(image, lgrid):
+                return F.grid_sample(image, lgrid, align_corners=True, padding_mode="zeros")
+
+            def library_grads(want_src=True, want_grid=True):
+                def fn():
+                    # leaves made here, so a captured replay owns its graph
+                    image = nchw.detach().requires_grad_(want_src)
+                    lgrid = grid_lib.detach().requires_grad_(want_grid)
+                    leaves = [t for t in (image, lgrid) if t.requires_grad]
+                    return torch.autograd.grad(library(image, lgrid), leaves, d_nchw)
+                return fn
+
             if not bf16:
-                # F.grid_sample's backward; its values are compared only on the
-                # grid that avoids integers
-                nchw = src.permute(0, 3, 1, 2)
-                d_nchw = dout.permute(0, 3, 1, 2)
-
-                def library(image, lgrid):
-                    return F.grid_sample(image, lgrid, align_corners=True, padding_mode="zeros")
-
-                def library_grads(want_src=True, want_grid=True):
-                    def fn():
-                        # leaves made here, so a captured replay owns its graph
-                        image = nchw.detach().requires_grad_(want_src)
-                        lgrid = grid.detach().requires_grad_(want_grid)
-                        leaves = [t for t in (image, lgrid) if t.requires_grad]
-                        return torch.autograd.grad(library(image, lgrid), leaves, d_nchw)
-                    return fn
-
                 lib_src, lib_grid = library_grads()()
                 ref_src = warp.warp_dsrc_plain(grid, dout, shape)
                 ref_grid = warp.warp_dgrid_plain(src, grid, dout)
@@ -831,13 +857,13 @@ def warp_train_phase(device) -> dict:
                 check(f"F.grid_sample d_src C={C}", row["library_err"]["d_src"], _warp_tol(ref_src))
                 check(f"F.grid_sample d_grid C={C}", row["library_err"]["d_grid"],
                       10 * _warp_tol(ref_grid))
-                row["library_fwd_ms"] = time_ms(lambda: library(nchw, grid))
-                # the backward alone cannot be replayed from a graph recorded
-                # outside the capture: time forward + backward, less the forward
-                for key, want in (("library_bwd_ms", (True, True)),
-                                  ("library_dsrc_ms", (True, False)),
-                                  ("library_dgrid_ms", (False, True))):
-                    row[key] = time_ms(library_grads(*want)) - row["library_fwd_ms"]
+            row["library_fwd_ms"] = time_ms(lambda: library(nchw, grid_lib))
+            # the backward alone cannot be replayed from a graph recorded
+            # outside the capture: time forward + backward, less the forward
+            for key, want in (("library_bwd_ms", (True, True)),
+                              ("library_dsrc_ms", (True, False)),
+                              ("library_dgrid_ms", (False, True))):
+                row[key] = time_ms(library_grads(*want)) - row["library_fwd_ms"]
             log(row)
             tot["warp_train"]["ms_seven_shapes"] += row["fwd_ms"]
             in_step = {"warp_train": in_path, "warp_dsrc": dsrc_in_step,
@@ -850,10 +876,9 @@ def warp_train_phase(device) -> dict:
                 tot[n]["bytes"] += work[n][0]
                 tot[n]["flops"] += work[n][1]
                 tot[n]["cold_ms"] += row[f"{key}_cold_ms"]
-                if not bf16:
-                    tot[n]["library_ms"] += row[f"library_{key}_ms"]
-                    if n != "warp_train":
-                        tot[n]["library_both_ms"] += row["library_bwd_ms"]
+                tot[n]["library_ms"] += row[f"library_{key}_ms"]
+                if n != "warp_train":
+                    tot[n]["library_both_ms"] += row["library_bwd_ms"]
         for n in names:
             summary[n + ("_bf16" if bf16 else "")] = tot[n]
     return summary
@@ -1076,20 +1101,21 @@ def dsrc_order_phase(device) -> dict:
                     [lambda g=g, d=d: warp.warp_dsrc(g, d, shape) for g, d in copies], nbytes)
                 del copies
                 row["plain_ms"] = time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape))
-                row["library_ms"] = None
-                if not bf16:
-                    nchw = dout.new_zeros(B, C, h, h)
-                    d_nchw = dout.permute(0, 3, 1, 2)
+                # F.grid_sample's backward for the input alone, in dout's
+                # dtype (the grid too, as it requires)
+                nchw = dout.new_zeros(B, C, h, h)
+                d_nchw = dout.permute(0, 3, 1, 2)
+                grid_lib = grid.to(dtype)
 
-                    def library():
-                        image = nchw.detach().requires_grad_(True)
-                        out = F.grid_sample(image, grid, align_corners=True,
-                                            padding_mode="zeros")
-                        return torch.autograd.grad(out, [image], d_nchw)
+                def library():
+                    image = nchw.detach().requires_grad_(True)
+                    out = F.grid_sample(image, grid_lib, align_corners=True,
+                                        padding_mode="zeros")
+                    return torch.autograd.grad(out, [image], d_nchw)
 
-                    forward = time_ms(lambda: F.grid_sample(nchw, grid, align_corners=True,
-                                                            padding_mode="zeros"))
-                    row["library_ms"] = time_ms(library) - forward
+                forward = time_ms(lambda: F.grid_sample(nchw, grid_lib, align_corners=True,
+                                                        padding_mode="zeros"))
+                row["library_ms"] = time_ms(library) - forward
                 summary[f"warp_dsrc_bands_{'bf16' if bf16 else 'f32'}"] = {
                     "ms": row["kernel_ms"], "cold_ms": row["kernel_cold_ms"],
                     "plain_ms": row["plain_ms"], "library_ms": row["library_ms"], "err": err,
@@ -2456,13 +2482,15 @@ def augment_phase(device="cuda") -> dict:
     return result
 
 
+@_cudnn_pinned()
 def graph_against_eager(feed, base, dtype: str, milestone: bool = False,
                         device="cuda") -> dict:
     """(b) At configs/actions.yaml's width, DISPATCH_K device-fed steps from
     one state and one list of plans: two eager runs (Trainer.step, capturable
-    Adam) and one graphed (Trainer.run). The graph's first-step metrics
-    against eager's, and its distance from an eager run after the chunk
-    against the two eager runs' spread. With `milestone`, a rate milestone
+    Adam) and one graphed (Trainer.run), cuDNN pinned (`_cudnn_pinned`). The
+    graph's first-step metrics against eager's, and its distance from an
+    eager run after the chunk against the two eager runs' spread (0 where
+    the eager runs repeat bit for bit: the graph must then equal them). With `milestone`, a rate milestone
     after MILESTONE_STEP steps: the host rate drops there, and so do the
     graph's updates. `feed`: (config, executor, cache, a chunk of DISPATCH_K
     plans) of configs/actions.yaml; `base`: the networks every run starts
@@ -3040,6 +3068,7 @@ def _groups(state: dict) -> dict:
     return {k: torch.cat(v) for k, v in groups.items()}
 
 
+@_cudnn_pinned()
 def _parallel_steps(world: int, rank: int, device, group=None, swap: bool = False,
                     starts=None) -> dict:
     """PARALLEL_STEPS eager SGD steps of configs/actions.yaml on this rank's
@@ -3049,7 +3078,8 @@ def _parallel_steps(world: int, rank: int, device, group=None, swap: bool = Fals
     the steps follow on and their starting states are returned as `starts`.
     Per dtype: each step's parameter update and the running statistics
     after it (CPU, by sub-module), the parameters after the last step, the
-    num_batches_tracked, the metrics and the launches counted."""
+    num_batches_tracked, the metrics and the launches counted. cuDNN is
+    pinned (`_cudnn_pinned`) throughout."""
     import torch
 
     from monkeynet_tpu_torch.tasks.build import build_train_models
@@ -4004,9 +4034,176 @@ def vox_full_phase(smi: str, device="cuda") -> dict:
     return result
 
 
+# ---- phase 11 ----------------------------------------------------------------
+
+def layer_conv_flops(models, fn) -> int:
+    """FLOPs of the convolutions that fn() runs in the Conv3D layers of
+    `models`, from each call's shapes: the forward 2 x N x Ho x Wo x Cout x
+    Cin / groups x kh x kw; and where the layer's output receives a
+    gradient, its input's gradient as much again where the input requires
+    one, and its weight's gradient `groups` times as much where the weight
+    requires one (the rule FlopCounterMode applies to
+    aten.convolution_backward; a bias's gradient counts nothing)."""
+    from monkeynet_tpu_torch.models.blocks import Conv3D
+
+    total = [0]
+
+    def hook(module, inputs, out):
+        x = inputs[0]
+        B, D, _, _, cin = x.shape
+        _, _, ho, wo, cout = out.shape
+        kh, kw = module.weight.shape[-2:]
+        forward = 2 * B * D * ho * wo * cout * (cin // module.groups) * kh * kw
+        total[0] += forward
+        if out.requires_grad:
+            backward = forward * (int(x.requires_grad)
+                                  + module.groups * int(module.weight.requires_grad))
+
+            def on_grad(grad, backward=backward):
+                total[0] += backward
+
+            out.register_hook(on_grad)
+
+    handles = [m.register_forward_hook(hook) for model in models for m in model.modules()
+               if isinstance(m, Conv3D)]
+    try:
+        fn()
+    finally:
+        for h in handles:
+            h.remove()
+    return total[0]
+
+
+BENCH_TIMEOUT_S = 600
+BENCH_FRAMES = 512  # monkeynet_tpu_torch/bench.py's N_FRAMES, bench.py's
+# bench.py's line: its keys, and every key of its `extra`
+BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "extra")
+BENCH_EXTRA_KEYS = (
+    "device_kind", "train_steps_per_sec_taichi_b32", "train_spread_pct",
+    "sustained_steps_per_sec_actions", "sustained_loop_steps",
+    "sustained_wall_seconds_incl_compile", "fps_median", "spread_pct", "n_runs",
+    "compile_seconds", "compile_cache", "transfer_gflop_per_frame_measured",
+    "transfer_mfu_vs_bf16_peak", "train_hw_gflop_per_step_executed",
+    "train_hw_mfu_vs_bf16_peak", "train_gflop_per_step_measured", "train_mfu_vs_bf16_peak",
+)
+LOADER_LINE = re.compile(r"^loader: (\S+) batches/s \((\S+) items/s\) at batch_size=(\d+) "
+                         r"workers=(\d+) \((\S+) ms/batch\)$")
+
+
+def bench_flops(config, device="cuda") -> dict:
+    """The conv FLOPs of the bench's two counted calls, from the layers'
+    shapes (`layer_conv_flops`), on configs/taichi.yaml's networks (random
+    weights: the count depends on shapes alone): a first transfer chunk
+    (the source and CHUNK driving frames at 64^2, bf16) per frame, and one
+    eager train step at batch 32 (the config's bf16)."""
+    import torch
+
+    from monkeynet_tpu_torch.tasks.animate import TransferEngine
+    from monkeynet_tpu_torch.tasks.build import build_models, build_train_models
+    from monkeynet_tpu_torch.tasks.train import Trainer
+
+    generator, kp_detector = build_models(config, device=device, seed=SEED)
+    engine = TransferEngine(generator, kp_detector, chunk=CHUNK, dtype=torch.bfloat16,
+                            device=device)
+    gen = torch.Generator().manual_seed(SEED + 21)
+    source = torch.rand(1, 1, HW, HW, 3, generator=gen).to(device)
+    driving = torch.rand(1, CHUNK, HW, HW, 3, generator=gen).to(device)
+    per_frame = layer_conv_flops([engine.generator, engine.kp_detector],
+                                 lambda: engine(source, driving)) / CHUNK
+    del engine, generator, kp_detector
+    models = build_train_models(config, device=device, seed=SEED)
+    trainer = Trainer(models, config["train_params"], device=device, steps_per_epoch=100)
+    batch = {k: torch.rand(TRAIN_BATCH, 1, HW, HW, 3, generator=gen).to(device)
+             for k in ("source", "video")}
+    per_step = layer_conv_flops(list(models.values()), lambda: trainer.step(batch))
+    del trainer, models
+    torch.cuda.empty_cache()
+    return {"transfer_flops_per_frame": per_frame, "train_flops_per_step": per_step}
+
+
+def _bench_cli(args, timeout: int) -> subprocess.CompletedProcess:
+    proc = subprocess.run([sys.executable, "-m", "monkeynet_tpu_torch.bench", *args], cwd=REPO,
+                          capture_output=True, text=True, timeout=timeout)
+    if proc.returncode != 0:
+        raise RuntimeError(f"python -m monkeynet_tpu_torch.bench {' '.join(args)} exited "
+                           f"{proc.returncode}: {proc.stderr[-4000:]}")
+    return proc
+
+
+def bench_phase(config, smi: str, device="cuda") -> dict:
+    """Phase 11: `python -m monkeynet_tpu_torch.bench` in a process of its
+    own (its own timeout), then its `loader` mode on configs/actions.yaml.
+    The bench's last line must hold every key of bench.py's line, finite
+    rates above 0 and MFUs where the card has a peak, the card's name, each
+    kernel's launches per transfer pass of 512 frames as
+    `expected_launches` gives them (both dtypes), and per train step and in
+    the captured step TRAIN_STEP_LAUNCHES; its FLOP counts must equal
+    `bench_flops`'s, computed here from the layers' shapes."""
+    import torch
+
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    proc = _bench_cli([], BENCH_TIMEOUT_S)
+    bench_s = time.perf_counter() - t0
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    log(line)
+    if tuple(line) != BENCH_LINE_KEYS:
+        raise AssertionError(f"bench: keys {list(line)}, want {list(BENCH_LINE_KEYS)}")
+    extra = line["extra"]
+    missing = [k for k in BENCH_EXTRA_KEYS if k not in extra]
+    if missing:
+        raise AssertionError(f"bench: extra lacks {missing}")
+    if (line["metric"], line["unit"]) != ("transfer_frames_per_sec_per_chip_taichi64",
+                                          "frames/s"):
+        raise AssertionError(f"bench: metric {line['metric']!r}, unit {line['unit']!r}")
+    if extra["device_kind"] != torch.cuda.get_device_name(0):
+        raise AssertionError(f"bench: device_kind {extra['device_kind']!r} on "
+                             f"{torch.cuda.get_device_name(0)!r}")
+    rates = {"value": line["value"], "vs_baseline": line["vs_baseline"],
+             **{k: extra[k] for k in ("fps_median", "train_steps_per_sec_taichi_b32",
+                                      "sustained_steps_per_sec_actions",
+                                      "train_eager_steps_per_sec",
+                                      "transfer_gflop_per_frame_measured",
+                                      "train_gflop_per_step_measured")},
+             "f32 fps": extra["transfer_f32"]["fps"]}
+    if extra["peak_flops_bf16"] is not None:
+        rates.update({k: extra[k] for k in ("transfer_mfu_vs_bf16_peak", "train_mfu_vs_bf16_peak",
+                                            "train_hw_mfu_vs_bf16_peak")})
+    bad = {k: v for k, v in rates.items() if not (isinstance(v, (int, float))
+                                                   and math.isfinite(v) and v > 0)}
+    if bad:
+        raise AssertionError(f"bench: rates not finite and above 0: {bad}")
+    want = expected_launches(config, BENCH_FRAMES, CHUNK)
+    for label, got in (("bf16", extra["transfer_launches_per_pass"]),
+                       ("f32", extra["transfer_f32"]["launches_per_pass"])):
+        if got != want:
+            raise AssertionError(f"bench transfer {label}: launches a pass {got} != {want}")
+    for label in ("train_launches_per_step", "train_captured_launches"):
+        if extra[label] != TRAIN_STEP_LAUNCHES:
+            raise AssertionError(f"bench: {label} {extra[label]} != {TRAIN_STEP_LAUNCHES}")
+    flops = bench_flops(config, device)
+    for key, value in flops.items():
+        if extra[key] != value:
+            raise AssertionError(f"bench: {key} {extra[key]} != {value} from the layers' shapes")
+    t0 = time.perf_counter()
+    loader = _bench_cli(["loader", "--config", "configs/actions.yaml", "--batches", "50",
+                         "--workers", "4"], 300).stdout.strip().splitlines()[-1]
+    loader_s = time.perf_counter() - t0
+    log(loader)
+    m = LOADER_LINE.match(loader)
+    if not m or not all(float(v) > 0 for v in m.groups()):
+        raise AssertionError(f"bench loader: {loader!r}")
+    result = {"phase": "bench", "bench_s": bench_s, "loader_s": loader_s,
+              "layer_flops": flops, "card": smi,
+              "launches": {"transfer_pass": want, "train_step": TRAIN_STEP_LAUNCHES}}
+    log(result)
+    return result
+
+
 def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                  loop_launches: dict, eval_launches: dict, actions_launches: dict,
-                 sharded_launches: dict, jaxckpt_launches: dict, vox_full_launches: dict) -> dict:
+                 sharded_launches: dict, jaxckpt_launches: dict, vox_full_launches: dict,
+                 bench_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; every path's counts are also
@@ -4017,7 +4214,8 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
     `parallel_launches`: phase 8's paths, `parallel_launches` above;
     `jaxckpt_launches`: phase 9's reconstruction and resumed train() from
     each JAX package file; `vox_full_launches`: phase 10's bf16 transfer of
-    64 frames in chunks of 32 on configs/vox-full.yaml).
+    64 frames in chunks of 32 on configs/vox-full.yaml; `bench_launches`:
+    phase 11's bench, a transfer pass of 512 frames and a train step).
     Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
@@ -4056,7 +4254,9 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                                      for path, launches in sharded_launches.items()},
                "jaxckpt_launches": {path: launches[name]
                                     for path, launches in jaxckpt_launches.items()},
-               "vox_full_launches": vox_full_launches[name]}
+               "vox_full_launches": vox_full_launches[name],
+               "bench_launches": {path: launches[name]
+                                  for path, launches in bench_launches.items()}}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
@@ -4090,7 +4290,7 @@ def full_f32() -> None:
 
 
 PHASES = ("kernels", "parity", "main", "loop", "dispatch", "parallel", "jaxckpt",
-          "vox_full")
+          "vox_full", "bench")
 
 
 def main(argv=None) -> int:
@@ -4137,6 +4337,7 @@ def main(argv=None) -> int:
             "parallel": lambda work: parallel_launches(parallel_phase(work, smi)),
             "jaxckpt": lambda work: jaxckpt_phase(work, smi),
             "vox_full": lambda work: vox_full_phase(smi),
+            "bench": lambda work: bench_phase(config, smi),
         }
         for name in only:
             with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
@@ -4181,13 +4382,16 @@ def main(argv=None) -> int:
     lap("jaxckpt")
     vox_full = vox_full_phase(smi)
     lap("vox_full")
+    bench = bench_phase(config, smi)
+    lap("bench")
     log({"phase": "seconds", **seconds})
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
     print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
                                   loop["launches"], evals["eval_launches"],
                                   dispatch["actions"]["launches"], sharded,
-                                  jaxckpt["launches"], vox_full["launches"])), flush=True)
+                                  jaxckpt["launches"], vox_full["launches"],
+                                  bench["launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
