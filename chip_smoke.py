@@ -22,12 +22,18 @@ Phases, each of which raises on failure:
      (integer-coordinate) grids, f32 and bf16, the plans and cold times of
      all three, F.grid_sample's backward for the grid alone, the input
      alone and both; the three with scalar loads and with 64-bit offsets,
-     and d_src's 'bands' plan and its 'shared' one past 48 KB of shared
+     and d_src's 'binned' plan and its 'shared' one past 48 KB of shared
      memory at the 256^2 configs' skips (warp_edge_phase); d_src twice on
      the same inputs, bit for bit, at the taichi, configs/shapes.yaml,
      configs/actions.yaml and shapes-256 train steps' shapes and on a
      contracting grid (every point of a batch element in one cell), timed
-     there and at 'bands' (dsrc_order_phase); the combine's
+     there; 'binned' at (20, 128^2, 64) on random, near-identity and
+     contracting grids, twice bit for bit, against the plain version, warm
+     and cold, beside F.grid_sample's backward, its three kernels in a
+     trace, and forced where 'shared' takes one chunk, equal to it bit for
+     bit (dsrc_order_phase); the warp forward and d_grid at the 256^2
+     configs' two largest skips, warm and cold, beside F.grid_sample
+     (skips_256_phase); the combine's
      closed-form backward against autograd; the four kernels of the train
      loop at the shapes its steps give them (configs/shapes.yaml, batch
      16: the three warp kernels at C = 3 ... 128 over 64^2 ... 2^2, both
@@ -890,7 +896,7 @@ def warp_edge_phase(device) -> dict:
     element off 16 bytes at C = 64; C = 5 and 12, no multiple of the bf16
     pack, the first of the f32 one), the small forward with its plane read
     in place and staged from a misaligned plane, d_src at two skips of the
-    256^2 configs' train step (batch 20): 'bands' at (128^2, 64), where no
+    256^2 configs' train step (batch 20): 'binned' at (128^2, 64), where no
     slice of the whole plane fits a block, and 'shared' past 48 KB of shared memory at
     (64^2, 128), both dtypes, and 64-bit offsets (2^21 points of 1024 bf16
     channels, 2^31 elements of output and of dout, held against the plain
@@ -955,7 +961,7 @@ def warp_edge_phase(device) -> dict:
     result["dsrc_256"] = []
     for dtype in (torch.float32, torch.bfloat16):
         rounded = 2.0**-8 if dtype == torch.bfloat16 else 2e-5
-        for (C, h), want in (((64, 128), "bands"), ((128, 64), "shared")):
+        for (C, h), want in (((64, 128), "binned"), ((128, 64), "shared")):
             shape = (20, h, h, C)
             dout = torch.randn(shape, generator=gen).to(device, dtype)
             grid = grid_off_integers(20, h, gen).to(device)
@@ -1036,18 +1042,25 @@ def dsrc_order_phase(device) -> dict:
     """d_src run twice on the same inputs must agree bit for bit: at the
     taichi train step's five d_src shapes (batch 32), configs/shapes.yaml's
     (batch 16) and configs/actions.yaml's (batch 32), the shapes-256 skips
-    (batch 20: 'bands' at (128^2, 64), 'shared' at (64^2, 128)), and a
+    (batch 20: 'binned' at (128^2, 64), 'shared' at (64^2, 128)), and a
     contracting grid that puts every point of a batch element in one cell
     (the taichi step's (32^2, 64)); f32 and bf16, random grids off the
-    integers. The 'bands' shape and the contracting grid are also held
-    against the plain version and timed L2-warm, 'bands' cold too with its
-    bound, its plain version and F.grid_sample's backward (f32) and on a
-    grid near the identity, the contracting grid beside a random grid at
-    its shape. Returns the 'bands' rows for the kernels line."""
+    integers. The contracting grid is also held against the plain version
+    and timed beside a random grid at its shape. 'binned' at (20, 128^2, 64)
+    on a random grid, a flow near the identity and a contracting grid:
+    twice bit for bit, against the plain version, L2-warm and cold, with its
+    bound (the grid, the dout rows of the points with a corner in the plane
+    and the gradient), its plain version and F.grid_sample's backward for
+    the input alone; a profiler trace of one call (its three kernels once
+    each); and 'binned' forced at the taichi step's (32, 32^2, 64), where
+    'shared' bins all points in one chunk and so sums every pixel in the
+    same order: equal to 'shared' bit for bit. Returns the 'binned' rows
+    for the kernels line."""
     import torch
     import torch.nn.functional as F
 
     from monkeynet_tpu_torch.ops.cuda import warp
+    from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
     from monkeynet_tpu_torch.utils.config import load_config
 
     gen = torch.Generator().manual_seed(SEED + 16)
@@ -1062,6 +1075,7 @@ def dsrc_order_phase(device) -> dict:
     result, summary = {"phase": "dsrc_order", "same_twice": [], "timed": []}, {}
     for dtype in (torch.float32, torch.bfloat16):
         bf16 = dtype == torch.bfloat16
+        tag = "bf16" if bf16 else "f32"
         es = 2 if bf16 else 4
         for label, B, C, h in cases + [("contracting", TRAIN_BATCH, 64, 32)]:
             shape = (B, h, h, C)
@@ -1073,58 +1087,174 @@ def dsrc_order_phase(device) -> dict:
             _same_twice(f"d_src {label} {dtype} {list(shape)}", first,
                         warp.warp_dsrc(grid, dout, shape))
             result["same_twice"].append([label, str(dtype), list(shape), plan.variant])
-            if label not in ("contracting", "shapes-256") or C != 64:
+            if label != "contracting":
                 continue
             ref = warp.warp_dsrc_plain(grid, dout.float(), shape)
             err = max_err(first, ref)
             check(f"d_src {label} {dtype} {list(shape)}", err, _warp_tol(ref, rounded=bf16))
+            random = grid_off_integers(B, h, gen).to(device)
             row = {"kernel": "warp_dsrc", "case": label, "dtype": str(dtype),
                    "shape": list(shape), "plan": plan._asdict(), "max_abs_err": err,
-                   "kernel_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape))}
-            if label == "contracting":
-                random = grid_off_integers(B, h, gen).to(device)
-                row["random_grid_ms"] = time_ms(lambda: warp.warp_dsrc(random, dout, shape))
-                row["points_a_cell"] = h * h
-            else:
-                # a flow near the identity, as training's deformations are
-                # (half a pixel of noise): a band's points then fill only a
-                # few of the chunks, and the rest are skipped
-                from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
-
-                near = (make_coordinate_grid((h, h))[None] + torch.rand(
-                    B, h, h, 2, generator=gen) / (h - 1)).contiguous().to(device)
-                row["near_identity_ms"] = time_ms(lambda: warp.warp_dsrc(near, dout, shape))
-                n_pts = B * h * h
-                nbytes = n_pts * 8 + 2 * n_pts * C * es
-                copies = [(grid.clone(), dout.clone()) for _ in range(cold_copies(nbytes))]
-                row["kernel_cold_ms"] = time_cold_ms(
-                    [lambda g=g, d=d: warp.warp_dsrc(g, d, shape) for g, d in copies], nbytes)
-                del copies
-                row["plain_ms"] = time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape))
-                # F.grid_sample's backward for the input alone, in dout's
-                # dtype (the grid too, as it requires)
-                nchw = dout.new_zeros(B, C, h, h)
-                d_nchw = dout.permute(0, 3, 1, 2)
-                grid_lib = grid.to(dtype)
-
-                def library():
-                    image = nchw.detach().requires_grad_(True)
-                    out = F.grid_sample(image, grid_lib, align_corners=True,
-                                        padding_mode="zeros")
-                    return torch.autograd.grad(out, [image], d_nchw)
-
-                forward = time_ms(lambda: F.grid_sample(nchw, grid_lib, align_corners=True,
-                                                        padding_mode="zeros"))
-                row["library_ms"] = time_ms(library) - forward
-                summary[f"warp_dsrc_bands_{'bf16' if bf16 else 'f32'}"] = {
-                    "ms": row["kernel_ms"], "cold_ms": row["kernel_cold_ms"],
-                    "plain_ms": row["plain_ms"], "library_ms": row["library_ms"], "err": err,
-                    "bytes": nbytes, "flops": n_pts * (C * 8 + 20)}
+                   "kernel_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape)),
+                   "random_grid_ms": time_ms(lambda: warp.warp_dsrc(random, dout, shape)),
+                   "points_a_cell": h * h}
             log(row)
             result["timed"].append(row)
+
+        # 'binned' at the 64 x 128^2 skip of the 256^2 configs
+        B, h, C = 20, 128, 64
+        shape = (B, h, h, C)
+        plan = warp.dsrc_plan(B, h * h, C, dtype, True, (h, h))
+        if plan.variant != "binned":
+            raise AssertionError(f"d_src {shape}: planned {plan}, expected 'binned'")
+        dout = torch.randn(shape, generator=gen).to(device, dtype)
+        grids = {"random": grid_off_integers(B, h, gen),
+                 "near_identity": make_coordinate_grid((h, h))[None]
+                 + torch.rand(B, h, h, 2, generator=gen) / (h - 1),
+                 "contracting": _contracting_grid(B, h, gen)}
+        binned = {}
+        for name, grid in grids.items():
+            grid = grid.contiguous().to(device)
+            first = warp.warp_dsrc(grid, dout, shape)
+            _same_twice(f"d_src binned {name} {dtype}", first, warp.warp_dsrc(grid, dout, shape))
+            ref = warp.warp_dsrc_plain(grid, dout.float(), shape)
+            err = max_err(first, ref)
+            check(f"d_src binned {name} {dtype}", err, _warp_tol(ref, rounded=bf16))
+            n_pts = B * h * h
+            # the dout rows this grid needs: the points with a corner cell
+            # in the plane
+            pix = (grid + 1.0) * 0.5 * (h - 1)
+            needed = int(((pix >= -1.0) & (pix < h)).all(-1).sum())
+            nbytes = n_pts * 8 + needed * C * es + n_pts * C * es
+            copies = [(grid.clone(), dout.clone()) for _ in range(cold_copies(nbytes))]
+            row = {"kernel": "warp_dsrc", "case": f"binned {name}", "dtype": str(dtype),
+                   "shape": list(shape), "plan": plan._asdict(), "max_abs_err": err,
+                   "points_in_plane": needed,
+                   "kernel_ms": time_ms(lambda: warp.warp_dsrc(grid, dout, shape)),
+                   "kernel_cold_ms": time_cold_ms(
+                       [lambda g=g, d=d: warp.warp_dsrc(g, d, shape) for g, d in copies],
+                       nbytes),
+                   "plain_ms": time_ms(lambda: warp.warp_dsrc_plain(grid, dout, shape))}
+            del copies
+            # F.grid_sample's backward for the input alone, in dout's dtype
+            # (the grid too, as it requires)
+            nchw = dout.new_zeros(B, C, h, h)
+            d_nchw = dout.permute(0, 3, 1, 2)
+            grid_lib = grid.to(dtype)
+
+            def library():
+                image = nchw.detach().requires_grad_(True)
+                out = F.grid_sample(image, grid_lib, align_corners=True, padding_mode="zeros")
+                return torch.autograd.grad(out, [image], d_nchw)
+
+            forward = time_ms(lambda: F.grid_sample(nchw, grid_lib, align_corners=True,
+                                                    padding_mode="zeros"))
+            row["library_ms"] = time_ms(library) - forward
+            log(row)
+            result["timed"].append(row)
+            binned[name] = {"ms": row["kernel_ms"], "cold_ms": row["kernel_cold_ms"],
+                            "plain_ms": row["plain_ms"], "library_ms": row["library_ms"],
+                            "err": err, "bytes": nbytes, "flops": n_pts * (C * 8 + 20)}
+        summary[f"warp_dsrc_binned_{tag}"] = binned
+        # one call is its three kernels, once each
+        with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as tmp:
+            grid = grids["random"].contiguous().to(device)
+            traced = _profiled(lambda: warp.warp_dsrc(grid, dout, shape),
+                               Path(tmp) / "dsrc_trace.json", DSRC_BINNED_KERNELS)
+        if traced["launches"] != dict.fromkeys(DSRC_BINNED_KERNELS, 1):
+            raise AssertionError(f"d_src binned: one call ran {traced['launches']}")
+        result[f"binned_trace_{tag}"] = traced["launches"]
+
+        # 'binned' forced where 'shared' bins all points in one chunk
+        B, h, C = TRAIN_BATCH, 32, 64
+        shape = (B, h, h, C)
+        shared = warp.dsrc_plan(B, h * h, C, dtype, True, (h, h))
+        if shared.variant != "shared" or shared.chunk != h * h:
+            raise AssertionError(f"d_src {shape}: planned {shared}")
+        forced = warp._binned_plan(B, h * h, C, shared.vector, shared.chunk, (h, h))
+        grid = grid_off_integers(B, h, gen).to(device)
+        dout = torch.randn(shape, generator=gen).to(device, dtype)
+        got = torch.empty(shape, dtype=dtype, device=device)
+        warp._launch_dsrc(grid, dout, got, shape, forced)
+        _same_twice(f"d_src binned against shared {dtype} {list(shape)}", got,
+                    warp.warp_dsrc(grid, dout, shape))
+        result[f"binned_equals_shared_{tag}"] = {"shape": list(shape), "plan": forced._asdict()}
     log({"phase": "dsrc_order", "same_twice": len(result["same_twice"]),
-         "cases": result["same_twice"]})
+         "cases": result["same_twice"],
+         **{k: v for k, v in result.items() if k.startswith("binned_")}})
     return summary
+
+
+def skips_256_phase(device) -> dict:
+    """The warp forward and d_grid at the two largest encoder skips of the
+    256^2 configs' train step (batch 20): (128^2, 64) and (64^2, 128), f32
+    and bf16, on a random grid off the integers: each against its plain
+    version, L2-warm and cold, with its bound, its plain version and
+    F.grid_sample's forward or its backward for the grid alone (in the
+    operand's dtype, the grid too, as it requires). Measurement: returns
+    the rows for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+
+    from monkeynet_tpu_torch.ops.cuda import warp
+
+    gen = torch.Generator().manual_seed(SEED + 17)
+    summary = {"warp": {}, "warp_dgrid": {}}
+    for dtype in (torch.float32, torch.bfloat16):
+        bf16 = dtype == torch.bfloat16
+        es = 2 if bf16 else 4
+        for C, h in ((64, 128), (128, 64)):
+            B = 20
+            key = f"{'bf16' if bf16 else 'f32'}_{h}x{h}x{C}"
+            src = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
+            dout = torch.randn(B, h, h, C, generator=gen).to(device, dtype)
+            grid = grid_off_integers(B, h, gen).to(device)
+            n_pts = plane = B * h * h
+            ref = warp.grid_sample(src.float(), grid)
+            dref = warp.warp_dgrid_plain(src.float(), grid, dout.float())
+            err = max_err(warp.warp(src, grid), ref)
+            derr = max_err(warp.warp_dgrid(src, grid, dout), dref)
+            check(f"warp {key}", err, _warp_tol(ref, rounded=bf16))
+            check(f"warp_dgrid {key}", derr, 2e-5 * max(1.0, dref.abs().max().item()))
+            work = {"warp": (plane * C * es + n_pts * 8 + n_pts * C * es, n_pts * (C * 8 + 20)),
+                    "warp_dgrid": (plane * C * es + n_pts * 8 + n_pts * C * es + n_pts * 8,
+                                   n_pts * (C * 14 + 24))}
+            cold = [(src.clone(), grid.clone(), dout.clone())
+                    for _ in range(cold_copies(work["warp_dgrid"][0]))]
+            nchw = src.permute(0, 3, 1, 2)
+            d_nchw = dout.permute(0, 3, 1, 2)
+            grid_lib = grid.to(dtype)
+
+            def library_fwd():
+                return F.grid_sample(nchw, grid_lib, align_corners=True, padding_mode="zeros")
+
+            def library_dgrid():
+                lgrid = grid_lib.detach().requires_grad_(True)
+                out = F.grid_sample(nchw, lgrid, align_corners=True, padding_mode="zeros")
+                return torch.autograd.grad(out, [lgrid], d_nchw)
+
+            lib_fwd = time_ms(library_fwd)
+            rows = {
+                "warp": {"ms": time_ms(lambda: warp.warp(src, grid)),
+                         "cold_ms": time_cold_ms([lambda s=s, g=g: warp.warp(s, g)
+                                                  for s, g, _ in cold], work["warp"][0]),
+                         "plain_ms": time_ms(lambda: warp.grid_sample(src, grid)),
+                         "library_ms": lib_fwd, "err": err,
+                         "plan": warp.warp_plan(B, h * h, C, dtype, True, h * h)._asdict()},
+                "warp_dgrid": {
+                    "ms": time_ms(lambda: warp.warp_dgrid(src, grid, dout)),
+                    "cold_ms": time_cold_ms([lambda s=s, g=g, d=d: warp.warp_dgrid(s, g, d)
+                                             for s, g, d in cold], work["warp_dgrid"][0]),
+                    "plain_ms": time_ms(lambda: warp.warp_dgrid_plain(src, grid, dout)),
+                    "library_ms": time_ms(library_dgrid) - lib_fwd, "err": derr,
+                    "plan": warp.dgrid_plan(B, h * h, C, dtype, True, h * h)._asdict()}}
+            del cold
+            for name, row in rows.items():
+                row["bytes"], row["flops"] = work[name]
+                summary[name][key] = row
+                log({"kernel": name, "case": "skips_256", "shape": [B, h, h, C],
+                     "dtype": str(dtype), **row})
+    return {"skips_256": summary}
 
 
 def combine_backward_phase(device, batch=TRAIN_BATCH, K1=11, label="taichi") -> dict:
@@ -1720,9 +1850,15 @@ LOOP_LOG_FREQ = 8
 LOOP_STEP_TIMED = 32  # a step alone, one window after TRAIN_WARMUP_STEPS
 LOG_ROW = re.compile(r"^(\d+)\) (.*); steps/s - (\S+)$")
 # The csrc kernels of the train step, by the names a profiler trace gives
-# them (templated names carry these as prefixes).
-TRACE_KERNELS = {"warp": "warp_fwd_kernel", "warp_dsrc": "warp_dsrc_kernel",
-                 "warp_dgrid": "warp_dgrid_kernel", "combine": "combine_kernel"}
+# them (templated names carry these as prefixes): each wrapper's call is one
+# of its kernels.
+TRACE_KERNELS = {"warp": ("warp_fwd_kernel",),
+                 "warp_dsrc": ("warp_dsrc_kernel", "warp_dsrc_gather_kernel"),
+                 "warp_dgrid": ("warp_dgrid_kernel",), "combine": ("combine_kernel",)}
+# A 'binned' d_src call's kernels (its last, the gather, counts the call in
+# TRACE_KERNELS).
+DSRC_BINNED_KERNELS = {"bin": ("warp_dsrc_bin_kernel",), "sort": ("warp_dsrc_sort_kernel",),
+                       "gather": ("warp_dsrc_gather_kernel",)}
 
 
 def _log_rows(log_dir) -> list:
@@ -1791,9 +1927,10 @@ def _graph_launches(label: str, trainer, counted: dict, per_step: dict, steps: i
     return {k: v * stats["replays"] for k, v in captured.items()}
 
 
-def _profiled(fn, trace_path: Path) -> dict:
+def _profiled(fn, trace_path: Path, kernels=None) -> dict:
     """fn() once under torch.profiler, synchronised: the csrc kernels'
-    launches counted by name in the device trace (TRACE_KERNELS), every
+    launches counted by name in the device trace (`kernels`, by default
+    TRACE_KERNELS: a name and the kernel names that count as it), every
     kernel's count, the device's busy time (the union of the kernels'
     intervals) and the span from the first kernel's start to the last one's
     end, in microseconds, and the host wall."""
@@ -1818,8 +1955,8 @@ def _profiled(fn, trace_path: Path) -> dict:
         if b > reach:
             busy += b - max(a, reach)
             reach = b
-    return {"launches": {name: sum(prefix in e["name"] for e in events)
-                         for name, prefix in TRACE_KERNELS.items()},
+    return {"launches": {name: sum(any(p in e["name"] for p in prefixes) for e in events)
+                         for name, prefixes in (kernels or TRACE_KERNELS).items()},
             "nccl": sum("nccl" in e["name"].lower() for e in events),
             "kernels": len(events), "busy_us": busy, "span_us": spans[-1][1] - spans[0][0],
             "wall_us": wall_s * 1e6}
@@ -4270,8 +4407,13 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                             for dtype in ("f32", "bf16") for frames in (2, 32)
                             for key in [f"softargmax_split_{dtype}_{frames}"]}
         if name == "warp_dsrc":
-            row["bands"] = {dtype: numbers(summary[f"warp_dsrc_bands_{dtype}"])
-                            for dtype in ("f32", "bf16")}
+            # 'binned' at the 256^2 configs' (20, 128^2, 64), three grids
+            row["binned"] = {dtype: {grid: numbers(s) for grid, s in
+                                     summary[f"warp_dsrc_binned_{dtype}"].items()}
+                             for dtype in ("f32", "bf16")}
+        if name in ("warp", "warp_dgrid"):
+            # at the 256^2 configs' two largest skips, batch 20
+            row["skips_256"] = {key: numbers(s) for key, s in summary["skips_256"][name].items()}
         if name in ("warp_dsrc", "warp_dgrid"):
             leaf = "input" if name == "warp_dsrc" else "grid"
             row["library"] = (f"F.grid_sample backward with only the {leaf} requiring grad; "
@@ -4327,7 +4469,7 @@ def main(argv=None) -> int:
         phases = {
             "kernels": lambda work: (kernel_phase("cuda"), warp_train_phase("cuda"),
                                      warp_edge_phase("cuda"), dsrc_order_phase("cuda"),
-                                     combine_backward_phase("cuda"),
+                                     skips_256_phase("cuda"), combine_backward_phase("cuda"),
                                      loop_kernel_phase("cuda"), eval_kernel_phase("cuda")),
             "parity": lambda work: (slice_parity(config), train_parity(config)),
             "main": lambda work: (main_path(config, torch.bfloat16),
@@ -4355,6 +4497,7 @@ def main(argv=None) -> int:
     summary.update(warp_train_phase("cuda"))
     warp_edge_phase("cuda")
     summary.update(dsrc_order_phase("cuda"))
+    summary.update(skips_256_phase("cuda"))
     combine_backward_phase("cuda")
     loop_kernel_phase("cuda")
     eval_kernel_phase("cuda")

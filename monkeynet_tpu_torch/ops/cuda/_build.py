@@ -43,6 +43,8 @@ _SIGNATURES = {
     "mk_warp_fwd": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _L, _I, _I, _P),
     "mk_warp_dsrc": (_P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I, _I, _I, _L, _I,
                      _I, _P),
+    "mk_warp_dsrc_binned": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _I, _L, _I,
+                            _I, _I, _P),
     "mk_warp_dgrid": (_P, _P, _P, _P, _I, _I, _I, _I, _L, _I, _I, _I, _I, _I, _L, _I, _P),
     "mk_combine_fwd": (_P, _P, _P, _P, _L, _I, _I, _I, _P),
     "mk_softargmax_staged": (_P, _P, _L, _I, _I, _I, _F, _I, _I, _I, _P),

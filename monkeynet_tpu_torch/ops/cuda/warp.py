@@ -23,11 +23,15 @@ both, so none of that carries over:
   f32 for the pixels it owns (one, or a 2 x 2 quad) from the cells around
   them and writes each value once, in dout's dtype: one launch a call, and
   no f32 atomics, which sm_90 runs on shared memory only as
-  compare-and-swap loops. 'bands' (planes too large even for that) runs the
-  same kernel with each block owning a band of pixel rows of a slice and
-  binning only the points with a corner in its band. Both sum each pixel in
-  a fixed order (a cell's points in point order), so two runs agree bit for
-  bit;
+  compare-and-swap loops. 'binned' (planes too large even for that) bins in
+  device memory: a pass over the points gives each to a band of cell rows
+  (a bit per point in its band's list), a block per band sorts its points
+  by cell in point order into one cell-sorted list a batch element, and a
+  block per strip of 2 x 2 quads of pixels stages its points from that list
+  in shared memory and gathers them, a group of lanes a quad over every
+  channel: three launches a call. Both sum each pixel in a fixed order (a
+  cell's points in point order; 'binned' as 'shared' does with all points
+  in one chunk), so two runs agree bit for bit;
 - d_grid: the right difference at integer coordinates, f32 throughout.
   `dgrid_plan` picks 'small' (one thread per point), 'grouped' (up to 32
   threads per point on 16-byte packs, a segmented shuffle sum) or 'split'
@@ -87,8 +91,20 @@ _SLICE_MAX_BYTES = MAX_DYNAMIC_SHARED // 2
 _DSRC_CHUNK = 1024
 _DSRC_MAX_THREADS = 512
 _DSRC_QUAD_ITEMS = 256
+# 'binned': the shared memory a block takes without opting in (a block of
+# the first pass, its words of every band's list; a gather block, its
+# window); the most sort bands (the band lists take bands x N / 8 bytes);
+# the points a batch element may have (a point's index is a 32-bit int);
+# the gather's quads a block (the fastest strip at the 256^2 skip, PERF.md)
+# and the most lanes a quad takes (a warp's: the lanes of a quad read each
+# point's entry at one address).
+_NO_OPT_IN_SHARED = 48 * 1024
+_BIN_BANDS = 128
+_BIN_MAX_POINTS = 2**31 - 1
+_GATHER_QUADS = 16
+_GATHER_MAX_LANES = 32
 _FWD_VARIANTS = ("small", "vector")
-_DSRC_VARIANTS = ("shared", "bands")
+_DSRC_VARIANTS = ("shared", "binned")
 _DGRID_VARIANTS = ("small", "grouped", "split")
 
 
@@ -107,17 +123,17 @@ class WarpPlan(NamedTuple):
 class DsrcPlan(NamedTuple):
     """How csrc/warp_dsrc.cu runs one d_src call."""
 
-    variant: str  # 'shared' (a block owns every pixel row) | 'bands' (a band of them)
+    variant: str  # 'shared' (a block per slice) | 'binned' (sorted in device memory)
     vector: int  # channels a load: a 16-byte pack or 1
-    channels: int  # channels a block owns (the last slice may be narrower)
+    channels: int  # channels a block owns (the last slice may be narrower); 'binned': C
     lanes: int  # threads per tile, a power of two
-    chunk: int  # points a block bins at a time
-    tile: int  # pixels a side of what one gather thread owns (1 or 2)
-    threads: int
-    blocks: tuple  # (x over (band, slice) pairs, band-major; y = batch element)
-    shared_bytes: int  # dsrc_shared_bytes
+    chunk: int  # points a block bins at a time ('binned': a sort block)
+    tile: int  # pixels a side of what one gather thread owns (1 or 2; 'binned': 2)
+    threads: int  # of a block ('binned': of a gather block)
+    blocks: tuple  # (x over slices, or 'binned''s over strips of quads; y = batch element)
+    shared_bytes: int  # dsrc_shared_bytes ('binned': dsrc_sort_bytes, a sort block's)
     index_bits: int
-    rows: int  # pixel rows a block owns: H ('shared') or a band's
+    rows: int  # 'shared': H; 'binned': cell rows a sort band owns
 
 
 class DgridPlan(NamedTuple):
@@ -240,6 +256,45 @@ def _dsrc_rows(fits, H):
     return lo
 
 
+def dsrc_sort_bytes(rows, W, chunk):
+    """Dynamic shared memory of a 'binned' sort block that owns `rows` rows
+    of W + 1 cells (sort_layout in csrc/warp_dsrc.cu), each part in whole 16
+    bytes: the window's `chunk` point indices, the start, cursor and two
+    placement masks of each cell and one more start, 32 warp totals."""
+    cells = rows * (W + 1)
+    return -(-(-(-chunk * 4 // 16) * 16 + 16 * cells + 4 + 128) // 16) * 16
+
+
+def dsrc_binned_scratch_bytes(B, N, H, W, rows):
+    """Device scratch of a 'binned' call (launch_binned in
+    csrc/warp_dsrc.cu): the sorted lists (16 bytes a point), the band lists
+    (a bit a point, in 32-bit words a band), the band totals and the cell
+    starts ((H + 1) (W + 1) + 1 ints a batch element)."""
+    bands = -(-(H + 1) // rows)
+    return B * (16 * N + 4 * bands * -(-N // 32) + 4 * bands + 4 * ((H + 1) * (W + 1) + 1))
+
+
+def dsrc_gather_window(lanes, pack_bytes):
+    """Points a 'binned' gather block stages at a time (gather_window in
+    csrc/warp_dsrc.cu): up to 128, a power of two, as many as keep their
+    16-byte entries and `lanes` packs of `pack_bytes` each in 48 KB."""
+    window = 128
+    while window > 1 and window * (16 + lanes * pack_bytes) > _NO_OPT_IN_SHARED:
+        window //= 2
+    return window
+
+
+def dsrc_bin_words(bands):
+    """32-bit words of every band's list that a block of 'binned''s first
+    pass takes (32 points a word, a thread a point): up to 32, a power of
+    two, as many as keep bands x words in `_NO_OPT_IN_SHARED` of shared
+    memory; 0 where not even one word a band fits."""
+    words = 32
+    while words > 1 and bands * words * 4 > _NO_OPT_IN_SHARED:
+        words //= 2
+    return words if bands * words * 4 <= _NO_OPT_IN_SHARED else 0
+
+
 def dsrc_plan(B, N, C, dtype, aligned, source_hw) -> DsrcPlan:
     """Variant, load width, channels a block owns, threads per tile, points
     binned at a time, gather tile, rows a block owns and launch shape of the
@@ -254,10 +309,18 @@ def dsrc_plan(B, N, C, dtype, aligned, source_hw) -> DsrcPlan:
     block takes more than half of that memory or the launch has fewer blocks
     than the card has SMs. Where all N points then fit one chunk in the
     shared memory a block may use, they are binned at once (no f32 plane,
-    one pass over the pixels). Otherwise 'bands': a slice of 32 bytes of
-    channels (one load where that does not fit) over a band of as many pixel
-    rows as fit half of that memory (all of it where one row does not), the
-    points `_DSRC_CHUNK` at a time. A gather thread owns a 2 x 2 quad of
+    one pass over the pixels). Otherwise 'binned': sort bands of as many
+    rows of cells as hold `_DSRC_CHUNK` points where the points spread
+    evenly over the H + 1 cell rows, and no more than `_BIN_BANDS` bands,
+    as far as a sort block's shared memory allows; a sort block compacts
+    `_DSRC_CHUNK` points at a time; the
+    gather takes a 2 x 2 quad of pixels over all C channels a group of
+    lanes (a lane a load, up to 32, in passes over the loads), a block a
+    strip of `_GATHER_QUADS` quads along a row of quads.
+    Refused where one row of cells does not fit a sort block, where a
+    block of the first pass cannot hold a word of every band
+    (`dsrc_bin_words`) or past `_BIN_MAX_POINTS` points a batch element.
+    'shared': a gather thread owns a 2 x 2 quad of
     pixels where the block has at least `_DSRC_QUAD_ITEMS` (quad, load)
     items, else one pixel; a tile's loads are dealt to a power-of-two group
     of lanes, 128 to 512 threads a block."""
@@ -289,14 +352,7 @@ def dsrc_plan(B, N, C, dtype, aligned, source_hw) -> DsrcPlan:
         if N > chunk and shared_bytes(channels, N) <= MAX_DYNAMIC_SHARED:
             chunk = N
     else:
-        variant = "bands"
-        channels = sector if shared_bytes(sector, chunk, 1) <= MAX_DYNAMIC_SHARED else vector
-        budget = (_SLICE_MAX_BYTES if shared_bytes(channels, chunk, 1) <= _SLICE_MAX_BYTES
-                  else MAX_DYNAMIC_SHARED)
-        rows = _dsrc_rows(lambda r: shared_bytes(channels, chunk, r) <= budget, H)
-        if rows == 0:
-            raise ValueError(f"warp_dsrc: a row of {W} pixels of {channels} channels does not "
-                             f"fit a block's shared memory")
+        return _binned_plan(B, N, C, vector, chunk, (H, W))
     packs = channels // vector
     lanes = min(_THREADS, _next_pow2(packs))
     # a gather thread owns a 2 x 2 quad of pixels where the block has enough
@@ -311,6 +367,30 @@ def dsrc_plan(B, N, C, dtype, aligned, source_hw) -> DsrcPlan:
                                  blocks_x=-(-C // channels) * -(-H // rows))
     return DsrcPlan(variant, vector, channels, lanes, chunk, tile, threads, blocks,
                     shared_bytes(channels, chunk, rows), index_bits, rows)
+
+
+def _binned_plan(B, N, C, vector, chunk, source_hw) -> DsrcPlan:
+    """dsrc_plan's 'binned' (see there)."""
+    H, W = source_hw
+    fits = _dsrc_rows(lambda r: dsrc_sort_bytes(r, W, chunk) <= MAX_DYNAMIC_SHARED, H + 1)
+    rows = min(fits, max(1, chunk * (H + 1) // max(N, 1), -(-(H + 1) // _BIN_BANDS)))
+    if rows == 0:
+        raise ValueError(f"warp_dsrc: a row of {W + 1} cells does not fit a sort block's "
+                         f"shared memory")
+    bands = -(-(H + 1) // rows)
+    if dsrc_bin_words(bands) == 0:
+        raise ValueError(f"warp_dsrc: {bands} bands of {rows} cell rows exceed the binning "
+                         f"pass's shared memory")
+    if N > _BIN_MAX_POINTS:
+        raise ValueError(f"warp_dsrc: {N} points a batch element exceed 'binned''s 32-bit "
+                         f"point indices")
+    lanes = min(_GATHER_MAX_LANES, _next_pow2(C // vector))
+    threads = max(32, _GATHER_QUADS * lanes)
+    strips = -(-(-(-W // 2)) // (threads // lanes))
+    blocks, index_bits = _launch(B, N, C, H * W, chunk, "warp_dsrc",
+                                 blocks_x=-(-H // 2) * strips)
+    return DsrcPlan("binned", vector, C, lanes, chunk, 2, threads, blocks,
+                    dsrc_sort_bytes(rows, W, chunk), index_bits, rows)
 
 
 def grid_sample(image, grid):
@@ -431,17 +511,29 @@ def _warp_forward(image, grid):
 
 
 def _launch_dsrc(grid, dout, out, image_shape, plan):
-    """Run the d_src kernel under `plan` into `out`, in dout's dtype."""
+    """Run the d_src kernel under `plan` into `out`, in dout's dtype.
+    'binned' takes its scratch (dsrc_binned_scratch_bytes) from PyTorch's
+    allocator on the current stream; the launcher zeroes the part that
+    needs it."""
     B, H, W, C = image_shape
+    N = grid.shape[1] * grid.shape[2]
     lib = _build.library()
+    dtype, lanes_log2 = _build.DTYPE_CODES[dout.dtype], plan.lanes.bit_length() - 1
     with torch.cuda.device(dout.device):
-        status = lib.mk_warp_dsrc(
-            grid.data_ptr(), dout.data_ptr(), out.data_ptr(), B, H, W, C,
-            grid.shape[1] * grid.shape[2], _build.DTYPE_CODES[dout.dtype], plan.vector,
-            plan.channels, plan.lanes.bit_length() - 1, plan.chunk, plan.tile, plan.rows,
-            plan.threads, plan.blocks[0], plan.shared_bytes, int(plan.index_bits == 64),
-            _build.stream_of(dout),
-        )
+        if plan.variant == "binned":
+            scratch = torch.empty(dsrc_binned_scratch_bytes(B, N, H, W, plan.rows),
+                                  dtype=torch.uint8, device=dout.device)
+            status = lib.mk_warp_dsrc_binned(
+                grid.data_ptr(), dout.data_ptr(), out.data_ptr(), scratch.data_ptr(), B, H, W,
+                C, N, dtype, plan.vector, lanes_log2, plan.chunk, plan.rows, plan.threads,
+                plan.blocks[0], plan.shared_bytes, int(plan.index_bits == 64),
+                dsrc_bin_words(-(-(H + 1) // plan.rows)), _build.stream_of(dout))
+        else:
+            status = lib.mk_warp_dsrc(
+                grid.data_ptr(), dout.data_ptr(), out.data_ptr(), B, H, W, C, N, dtype,
+                plan.vector, plan.channels, lanes_log2, plan.chunk, plan.tile, plan.rows,
+                plan.threads, plan.blocks[0], plan.shared_bytes, int(plan.index_bits == 64),
+                _build.stream_of(dout))
     _build.check_launch(status, f"warp_dsrc ({plan.variant})")
 
 

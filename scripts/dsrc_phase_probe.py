@@ -36,9 +36,10 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[1]
 SHAPES = ((64, 32), (128, 16), (256, 8), (512, 4), (1024, 2))
 BATCH = 32
-# (first line of a phase, first line after it) in the 'shared' kernel
-GATHER = ("#pragma unroll\n        for (int j = 0; j <= kTile; ++j) {",
-          "#pragma unroll\n        for (int dy = 0; dy < kTile; ++dy) {")
+# (first line of a phase, first line after it) in the 'shared' kernel; the
+# gather's walk over the cells is tile_sums' body
+GATHER = ("#pragma unroll\n  for (int j = 0; j <= kTile; ++j) {",
+          "}\n\n// Dynamic shared memory of a 'shared' block")
 COUNT = ("    // count: a thread reads", "    __syncthreads();\n    block_exclusive_scan")
 SCAN = "    block_exclusive_scan(cursor, start, cells, warp_total);\n"
 PLACE = ("    // placement: each point's",
@@ -57,7 +58,10 @@ def cut(text: str, span) -> str:
 # this kernel had before: a thread a point taking the slot an atomicAdd on
 # its cell's cursor returns (no fixed order)
 SWEEP = """    if (threadIdx.x < 64)
-      place_in_order(grid + 2 * q0, n, H, W, y_lo, Hb, cursor, masks, cells, binned);
+      place_in_order(
+          [&](int q) { return make_float2(chunk_grid[2 * q], chunk_grid[2 * q + 1]); },
+          [&](int slot, float fx, float fy, int q) { binned[slot] = Binned{fx, fy, q, 0}; }, n,
+          H, W, y_lo, Hb, cursor, masks, cells);
 """
 ATOMIC = """    for (int q = threadIdx.x; q < n; q += blockDim.x) {
       const Taps tp = bilinear_taps(grid[2 * (q0 + q)], grid[2 * (q0 + q) + 1], H, W);
