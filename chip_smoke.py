@@ -1806,7 +1806,8 @@ def train_path(config, compute_dtype, device="cuda") -> dict:
             raise AssertionError(f"{name}: parameters did not move")
     ordered = sorted(times)
     median = 0.5 * (ordered[len(ordered) // 2 - 1] + ordered[len(ordered) // 2])
-    del trainer, out
+    # the eager trainer's networks and gradients go before the graphed one's
+    del trainer, out, models
     # The same steps through the step's CUDA graph: the eager window above
     # one step at a time, here TRAIN_TIMED_STEPS replays back to back, one sync.
     trainer = Trainer(build_train_models(config, device=device, seed=SEED), train_params,

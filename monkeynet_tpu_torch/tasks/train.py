@@ -93,6 +93,18 @@ MODEL_NAMES = ("generator", "discriminator", "kp_detector")
 # make the optimizers' state, and run every lazy initialisation of cuBLAS,
 # cuDNN and the allocator outside the captured region.
 GRAPH_WARMUP_STEPS = 2
+# The side stream of the warm-up steps, one a device for every capture:
+# PyTorch keeps a cuBLAS workspace (32 MiB on the H100) for each stream and
+# thread that calls cuBLAS, for the life of the process, so a fresh stream
+# a capture would leave one or two behind every time.
+_WARMUP_STREAMS: Dict[int, "torch.cuda.Stream"] = {}
+
+
+def _warmup_stream(device: torch.device) -> "torch.cuda.Stream":
+    index = torch.cuda.current_device() if device.index is None else device.index
+    if index not in _WARMUP_STREAMS:
+        _WARMUP_STREAMS[index] = torch.cuda.Stream(index)
+    return _WARMUP_STREAMS[index]
 
 
 def multistep_lr(base_lr: float, milestones, steps_per_epoch: int, gamma: float = 0.1):
@@ -438,7 +450,7 @@ class Trainer:
             return out
 
         saved, fresh = self._snapshot()
-        side = torch.cuda.Stream(self.device)
+        side = _warmup_stream(self.device)
         side.wait_stream(torch.cuda.current_stream(self.device))
         with torch.cuda.stream(side):
             for _ in range(GRAPH_WARMUP_STEPS):

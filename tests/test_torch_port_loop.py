@@ -15,6 +15,30 @@ noise flips the sign of a near-zero gradient an Adam step can differ by
 2 * lr, so after n steps a parameter is held to 2 * lr * n (plus 1e-6), and
 so are the batch-norm running statistics, which such parameters feed; at
 least 98% of the parameter entries must agree to 1e-6.
+
+The resumed run past the replayed epoch is held to the JAX package's own
+spread. The port's CPU steps are not the same bit for bit at every thread
+count (PyTorch's CPU reductions split by thread; the JAX package's steps
+were the same at 1, 2, 4 and 8 threads), so the epoch-0 checkpoint both
+resumes start from changes with the thread count by rounding, and by up to
+2 * lr in the biases of convolutions that feed a batch norm. The train
+step's gradient has kinks: a ReLU input at 9e-5 in the generator's
+refinement block crosses zero under a relative change of 1e-6 in the
+parameters, which moves the kp detector's gradient by 6%. From one such
+checkpoint to the next, the JAX package's resumed run crosses a kink or
+not. Over 28 resumes (1, 2, 4 and 8 threads, each from the checkpoint as
+written and from six copies with every parameter scaled by 1 + 1e-7 *
+noise) its rows 0 to 3 after the resume part from each other by up to 0,
+1e-5, 1e-5 and 9e-5, and over 8 resumed steps by 1e-5, 9e-5, 2.6e-4,
+1.2e-4, 2.0e-4 and 3.0e-4 at rows 2 to 7 (at most 8.7e-5 a step past row
+1), while the port's rows agree within one printed unit. So the replayed
+epoch's two rows (0 and 1) keep the tolerance above, and a later row r is
+held to 1e-4 relative plus 1e-5 + RESUME_SPREAD_PER_STEP * (r - 1). In the
+resumed run's final parameters RESUMED_SHARE of the entries, not 98%, must
+agree to 1e-6: a crossed kink moves whole tensors a little (shares of
+0.9145-0.9148 where the run crossed one, 0.9914-0.9922 where not, at
+this test's 4 resumed steps; down to 0.537 over 8); the 2 * lr * n bound
+on every entry stays.
 """
 
 from __future__ import annotations
@@ -52,6 +76,10 @@ HW = 16
 EPOCHS = 2
 STEPS_PER_EPOCH = 2
 LOG_LINE = re.compile(r"^(\d+)\) (.*); steps/s - [\d.na]+$")
+# The JAX package's resumed rows past the replayed epoch, and the share of
+# the resumed run's parameter entries within 1e-6 (module docstring).
+RESUME_SPREAD_PER_STEP = 1.5e-4
+RESUMED_SHARE = 0.85
 
 
 def _config(root):
@@ -98,21 +126,24 @@ def _restore_adam_moments_unshared(opt_state, step, mu, nu):
 _RESTORE_ADAM_MOMENTS = jtrain.restore_adam_moments
 
 
-@pytest.fixture(scope="module")
-def runs(tmp_path_factory):
-    """Both packages' fresh runs and resumed runs (two JAX train() calls)."""
-    root = tmp_path_factory.mktemp("videos")
+def loop_runs(mkdir, num_epochs=EPOCHS, perturb=None):
+    """Both packages' fresh runs and resumed runs (two JAX train() calls),
+    in directories from `mkdir(name)`. `perturb(path)`, where given, returns
+    the checkpoint both resumes start from in place of the port's epoch-0
+    checkpoint at `path` (scripts/resume_spread_probe.py scales its
+    parameters)."""
+    root = mkdir("videos")
     for split, n in (("train", 4 * STEPS_PER_EPOCH), ("test", 1)):
         os.makedirs(root / split)
         for i in range(n):
             video = np.random.RandomState(i).rand(5, HW, HW, 3).astype(np.float32)
             write_stacked_png(str(root / split / f"{i:03d}.png"), video)
     config = _config(str(root))
+    config["train_params"]["num_epochs"] = num_epochs
     jds = JFramesDataset(is_train=True, **config["dataset_params"])
     tds = TFramesDataset(is_train=True, **config["dataset_params"])
-    dirs = {name: str(tmp_path_factory.mktemp(name))
-            for name in ("jax", "port", "jax_resumed", "port_resumed")}
-    init = str(tmp_path_factory.mktemp("init") / checkpoint_name(0))
+    dirs = {name: str(mkdir(name)) for name in ("jax", "port", "jax_resumed", "port_resumed")}
+    init = str(mkdir("init") / checkpoint_name(0))
     resume_from = os.path.join(dirs["port"], checkpoint_name(0))
     out = {"config": config, "dirs": dirs, "resume_from": resume_from,
            "jax_drawn": []}
@@ -129,11 +160,18 @@ def runs(tmp_path_factory):
         out["jax_state"] = jloop.train(config, dirs["jax"], jds, checkpoint=init)
         out["port_run"] = tloop.train(config, dirs["port"], tds, checkpoint=init, device="cpu")
 
+        if perturb is not None:
+            resume_from = out["resume_from"] = perturb(resume_from)
         mp.setattr(jloop, "DataLoader", _recording(jloop.DataLoader, out["jax_drawn"]))
         out["jax_resumed"] = jloop.train(config, dirs["jax_resumed"], jds, checkpoint=resume_from)
         out["port_resumed"] = tloop.train(config, dirs["port_resumed"], tds,
                                           checkpoint=resume_from, device="cpu")
     return out
+
+
+@pytest.fixture(scope="module")
+def runs(tmp_path_factory):
+    return loop_runs(tmp_path_factory.mktemp)
 
 
 def _log_rows(log_dir):
@@ -149,16 +187,17 @@ def _log_rows(log_dir):
     return rows
 
 
-def _assert_logs_match(jax_dir, port_dir, want_iterations):
+def _assert_logs_match(jax_dir, port_dir, want_iterations, atol=None):
+    """`atol`: {iteration: absolute tolerance}; 1e-5 where it names none."""
     want, got = _log_rows(jax_dir), _log_rows(port_dir)
     assert sorted(got) == sorted(want) == want_iterations
     for it in want:
         assert got[it][0] == want[it][0]
-        np.testing.assert_allclose(got[it][1], want[it][1], rtol=1e-4, atol=1e-5,
-                                   err_msg=f"iteration {it}")
+        np.testing.assert_allclose(got[it][1], want[it][1], rtol=1e-4,
+                                   atol=(atol or {}).get(it, 1e-5), err_msg=f"iteration {it}")
 
 
-def _assert_params_match(jax_state, trainer, steps, lr):
+def _assert_params_match(jax_state, trainer, steps, lr, share=0.98):
     tol = 2 * lr * steps + 1e-6
     gaps = []
     for name in MODEL_NAMES:
@@ -174,8 +213,8 @@ def _assert_params_match(jax_state, trainer, steps, lr):
             if "running_" not in key:
                 gaps.append(gap.flatten())
     # A sign flip moves single entries; a wrong gradient would move whole
-    # tensors. 99.2% of the entries agree to 1e-6 in both runs here.
-    assert (torch.cat(gaps) <= 1e-6).float().mean() >= 0.98
+    # tensors. 99.2% of the entries agree to 1e-6 in the fresh run here.
+    assert (torch.cat(gaps) <= 1e-6).float().mean() >= share
 
 
 def test_loop_logs_match_jax(runs):
@@ -222,14 +261,20 @@ def test_jax_load_any_reads_the_port_checkpoint(runs):
 def test_resume_matches_jax(runs):
     """Both packages resume from the port's epoch-0 checkpoint: they train
     epoch 0 again (the checkpoint's epoch), log from the saved iteration on,
-    and agree on every loss and the final parameters."""
+    and agree on every loss and the final parameters: the replayed epoch's
+    rows as the fresh run's, later rows and the parameters within the JAX
+    package's own spread (module docstring)."""
     assert runs["jax_drawn"] == runs["port_resumed"].epochs == [0, 1]
     first = STEPS_PER_EPOCH - 1  # the checkpoint's `it`: its last logged iteration
-    _assert_logs_match(runs["dirs"]["jax_resumed"], runs["dirs"]["port_resumed"],
-                       list(range(first, first + EPOCHS * STEPS_PER_EPOCH)))
+    iterations = list(range(first, first + EPOCHS * STEPS_PER_EPOCH))
+    atol = {it: 1e-5 + RESUME_SPREAD_PER_STEP * (it - first - 1)
+            for it in iterations if it - first >= STEPS_PER_EPOCH}
+    _assert_logs_match(runs["dirs"]["jax_resumed"], runs["dirs"]["port_resumed"], iterations,
+                       atol)
     lr = runs["config"]["train_params"]["lr"]
     steps = STEPS_PER_EPOCH + runs["port_resumed"].steps
-    _assert_params_match(runs["jax_resumed"], runs["port_resumed"].trainer, steps, lr)
+    _assert_params_match(runs["jax_resumed"], runs["port_resumed"].trainer, steps, lr,
+                         share=RESUMED_SHARE)
 
 
 def test_resume_restores_the_trainer_exactly(runs):
