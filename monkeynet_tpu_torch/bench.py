@@ -416,6 +416,18 @@ def _nvidia_smi() -> Optional[str]:
         return None
 
 
+def headline(fps: float) -> dict:
+    """The line's head, as bench.py prints it: `value` and `vs_baseline` are
+    each one rounding of the unrounded rate, so `vs_baseline` need not equal
+    `round(value / V100_EST_FPS, 3)`."""
+    return {
+        "metric": "transfer_frames_per_sec_per_chip_taichi64",
+        "value": round(fps, 2),
+        "unit": "frames/s",
+        "vs_baseline": round(fps / V100_EST_FPS, 3),
+    }
+
+
 def run(config, sustained_config, sustained_dataset, device="cuda",
         sizes: Sizes = Sizes()) -> dict:
     """The whole bench; returns the JSON line as a dict."""
@@ -490,13 +502,7 @@ def run(config, sustained_config, sustained_dataset, device="cuda",
         "sustained_detail": sustained["sustained_detail"],
         "sizes": dataclasses.asdict(sizes),
     }
-    return {
-        "metric": "transfer_frames_per_sec_per_chip_taichi64",
-        "value": round(fps, 2),
-        "unit": "frames/s",
-        "vs_baseline": round(fps / V100_EST_FPS, 3),
-        "extra": extra,
-    }
+    return {**headline(fps), "extra": extra}
 
 
 def loader_rate(config_path, batches: int = 50, workers: int = 4,

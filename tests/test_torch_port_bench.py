@@ -16,7 +16,7 @@
 (e) The whole bench at the tiny config on the CPU, a few frames and steps,
     the sustained loop over the first videos of data/actions: a line that
     json.loads reads with every key of bench.py's line and the card's
-    extras.
+    extras; the line's head on fixed rates, a rounding boundary among them.
 (f) The `loader` mode's line on configs/shapes.yaml at 2 batches.
 
 The JAX package's init_models runs once (~12 s at the tiny widths), in a
@@ -53,6 +53,9 @@ from .torch_port_common import tiny_config
 REPO = Path(__file__).resolve().parents[1]
 HW = 32
 OUT_ATOL = 1e-4
+# |vs_baseline * 100 - value| in frames/s: 0.05 (vs_baseline's third place)
+# + 0.005 (value's second) + float slack
+HEAD_SLACK = 0.056
 # bench.py's line: its top-level keys and every key of its `extra`
 LINE_KEYS = {"metric", "value", "unit", "vs_baseline", "extra"}
 EXTRA_KEYS = {
@@ -220,9 +223,12 @@ def test_bench_line_on_the_cpu():
     line = json.loads(json.dumps(bench.run(config, sustained_config, dataset, device="cpu",
                                            sizes=sizes)))
     assert set(line) == LINE_KEYS
+    assert list(line) == ["metric", "value", "unit", "vs_baseline", "extra"]
     assert line["metric"] == "transfer_frames_per_sec_per_chip_taichi64"
     assert line["unit"] == "frames/s" and line["value"] > 0
-    assert line["vs_baseline"] == round(line["value"] / 100.0, 3)
+    # each field is one rounding of the unrounded rate: they agree to half a
+    # unit in vs_baseline's third place plus half a unit in value's second
+    assert abs(line["vs_baseline"] * bench.V100_EST_FPS - line["value"]) <= HEAD_SLACK
     extra = line["extra"]
     assert EXTRA_KEYS | CARD_KEYS <= set(extra)
     assert extra["device_kind"] == "cpu" and extra["n_runs"] == 2
@@ -241,6 +247,26 @@ def test_bench_line_on_the_cpu():
     assert extra["train_hw_gflop_per_step_executed"] == extra["train_gflop_per_step_measured"]
     # the wrappers count kernel launches only: the CPU launched none
     assert set(extra["transfer_launches_per_pass"].values()) == {0}
+
+
+@pytest.mark.parametrize("fps, value, vs_baseline, boundary", [
+    # the hundredths on a boundary: round(539.05 / 100, 3) is 5.39
+    (539.0508031418598, 539.05, 5.391, True),
+    (412.3456, 412.35, 4.123, False),
+    (100.0, 100.0, 1.0, False),
+])
+def test_headline_rounds_the_unrounded_rate_once(fps, value, vs_baseline, boundary):
+    """bench.py's arithmetic: value = round(fps, 2), vs_baseline =
+    round(fps / 100, 3), both of the unrounded rate, in bench.py's key
+    order; re-rounding the rounded value differs exactly on a boundary."""
+    head = bench.headline(fps)
+    assert list(head) == ["metric", "value", "unit", "vs_baseline"]
+    assert head["metric"] == "transfer_frames_per_sec_per_chip_taichi64"
+    assert head["unit"] == "frames/s"
+    assert head["value"] == value == round(fps, 2)
+    assert head["vs_baseline"] == vs_baseline == round(fps / jax_bench.V100_EST_FPS, 3)
+    assert abs(head["vs_baseline"] * bench.V100_EST_FPS - head["value"]) <= HEAD_SLACK
+    assert (round(head["value"] / bench.V100_EST_FPS, 3) != head["vs_baseline"]) is boundary
 
 
 def test_check_launches_refuses_a_missing_or_stray_kernel():
