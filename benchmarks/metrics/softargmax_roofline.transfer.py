@@ -1,0 +1,7 @@
+"""The softargmax operation's byte-bound time over its kernels' measured time, in %."""
+
+from benchmarks import readers
+
+
+def read(records):
+    return readers.roofline_pct(records, ("softargmax",))
