@@ -23,6 +23,8 @@ from typing import Iterator
 import numpy as np
 import torch
 
+from monkeynet_tpu_torch.utils.tracing import span
+
 
 def collate(items):
     """Stack a list of dict samples into batched numpy arrays."""
@@ -289,9 +291,10 @@ class DevicePrefetch:
         thread.start()
         try:
             while True:
-                t0 = time.perf_counter()
-                item = self._q.get()
-                self.wait_s += time.perf_counter() - t0
+                with span("loop.feed_wait"):
+                    t0 = time.perf_counter()
+                    item = self._q.get()
+                    self.wait_s += time.perf_counter() - t0
                 if item is _END:
                     return
                 ep, batch, staged, ready, err = item

@@ -29,6 +29,7 @@ import torch
 
 from monkeynet_tpu_torch.parallel.mesh import shard_batch
 from monkeynet_tpu_torch.utils.device import require_device
+from monkeynet_tpu_torch.utils.tracing import span
 
 
 def _bucket(n: int, chunk: int, granularity: int = 16) -> int:
@@ -183,43 +184,53 @@ class TransferEngine(_Sharded):
         """source (B,1,H,W,C), driving (B,D,H,W,C) -> dict of f32 device
         tensors {'video_prediction', 'video_deformed', 'kp_driving',
         'kp_source', 'kp_norm'}."""
-        source = torch.as_tensor(source, device=self.device)
-        driving = torch.as_tensor(driving, device=self.device)
-        if self.dtype is not None:
-            source = source.to(self.dtype)
-        d = driving.shape[1]
-        sources = [source.to(dev) for dev in self.devices]
-        preds, defs, kps, norms = [], [], [], []
-        kp_source = kp_sources = kp_firsts = None
-        for start in range(0, d, self.chunk):
-            frames = driving[:, start : start + self.chunk]
-            n_valid = frames.shape[1]
-            frames = _pad_frames(frames, _bucket(n_valid, self.chunk, self.granularity))
-            if self.dtype is not None:
-                frames = frames.to(self.dtype)
-            if kp_source is None:
-                kp_source = self.kp_detector(source)
-                kp_sources = [_on(kp_source, dev) for dev in self.devices]
-            kp_chunks = [det(slab) for det, slab in zip(self.kp_detectors, self._slabs(frames))]
-            if kp_firsts is None:
-                kp_first = {k: v[:, :1] for k, v in kp_chunks[0].items()}
-                kp_firsts = [_on(kp_first, dev) for dev in self.devices]
-            kp_norms = [self._normalize(*args) for args in zip(kp_chunks, kp_firsts, kp_sources)]
-            outs = [gen(*args) for gen, *args in
-                    zip(self.generators, sources, kp_norms, kp_sources)]
-            preds.append(self._gather([o["video_prediction"] for o in outs], n_valid).float())
-            defs.append(self._gather([o["video_deformed"] for o in outs], n_valid).float())
-            kps.append({k: self._gather([c[k] for c in kp_chunks], n_valid)
-                        for k in kp_chunks[0]})
-            norms.append({k: self._gather([c[k] for c in kp_norms], n_valid)
-                          for k in kp_norms[0]})
-        return {
-            "video_prediction": _cat(preds),
-            "video_deformed": _cat(defs),
-            "kp_driving": {k: _cat([o[k] for o in kps]) for k in kps[0]},
-            "kp_norm": {k: _cat([o[k] for o in norms]) for k in norms[0]},
-            "kp_source": kp_source,
-        }
+        with span("transfer.video"):
+            with span("transfer.upload"):
+                source = torch.as_tensor(source, device=self.device)
+                driving = torch.as_tensor(driving, device=self.device)
+                if self.dtype is not None:
+                    source = source.to(self.dtype)
+            d = driving.shape[1]
+            sources = [source.to(dev) for dev in self.devices]
+            preds, defs, kps, norms = [], [], [], []
+            kp_source = kp_sources = kp_firsts = None
+            for start in range(0, d, self.chunk):
+                with span("transfer.chunk"):
+                    frames = driving[:, start : start + self.chunk]
+                    n_valid = frames.shape[1]
+                    frames = _pad_frames(frames, _bucket(n_valid, self.chunk, self.granularity))
+                    if self.dtype is not None:
+                        frames = frames.to(self.dtype)
+                    with span("transfer.detect"):
+                        if kp_source is None:
+                            kp_source = self.kp_detector(source)
+                            kp_sources = [_on(kp_source, dev) for dev in self.devices]
+                        kp_chunks = [det(slab) for det, slab in
+                                     zip(self.kp_detectors, self._slabs(frames))]
+                    with span("transfer.generate"):
+                        if kp_firsts is None:
+                            kp_first = {k: v[:, :1] for k, v in kp_chunks[0].items()}
+                            kp_firsts = [_on(kp_first, dev) for dev in self.devices]
+                        kp_norms = [self._normalize(*args)
+                                    for args in zip(kp_chunks, kp_firsts, kp_sources)]
+                        outs = [gen(*args) for gen, *args in
+                                zip(self.generators, sources, kp_norms, kp_sources)]
+                    with span("transfer.gather"):
+                        preds.append(self._gather([o["video_prediction"] for o in outs],
+                                                  n_valid).float())
+                        defs.append(self._gather([o["video_deformed"] for o in outs],
+                                                 n_valid).float())
+                        kps.append({k: self._gather([c[k] for c in kp_chunks], n_valid)
+                                    for k in kp_chunks[0]})
+                        norms.append({k: self._gather([c[k] for c in kp_norms], n_valid)
+                                      for k in kp_norms[0]})
+            return {
+                "video_prediction": _cat(preds),
+                "video_deformed": _cat(defs),
+                "kp_driving": {k: _cat([o[k] for o in kps]) for k in kps[0]},
+                "kp_norm": {k: _cat([o[k] for o in norms]) for k in norms[0]},
+                "kp_source": kp_source,
+            }
 
 
 class KPExtractor(_Sharded):

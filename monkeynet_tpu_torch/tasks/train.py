@@ -86,6 +86,7 @@ from monkeynet_tpu_torch.tasks.losses import (
     generator_loss_names,
 )
 from monkeynet_tpu_torch.utils.device import require_device
+from monkeynet_tpu_torch.utils.tracing import span
 from monkeynet_tpu_torch.utils.weights import adam_state_dict
 
 MODEL_NAMES = ("generator", "discriminator", "kp_detector")
@@ -383,34 +384,37 @@ class Trainer:
                              "steps")
         stop = len(next(iter(chunk.values()))) if stop is None else stop
         vis_steps = set(vis_steps)
-        if self.device.type != "cuda" or not graph:
-            metrics, vis = [], {}
-            for j in range(start, stop):
-                batch = {k: v[j] for k, v in chunk.items()}
-                if augment is not None:
-                    with torch.no_grad():
-                        batch = augment(batch)
-                out = self.step(batch)
-                metrics.append(out["metrics"])
-                if j in vis_steps:
-                    vis[j] = dict(out, **batch) if augment is not None else out
-            return torch.stack(metrics), vis
+        with span("trainer.run"):
+            if self.device.type != "cuda" or not graph:
+                metrics, vis = [], {}
+                for j in range(start, stop):
+                    with span("trainer.step"):
+                        batch = {k: v[j] for k, v in chunk.items()}
+                        if augment is not None:
+                            with torch.no_grad():
+                                batch = augment(batch)
+                        out = self.step(batch)
+                        metrics.append(out["metrics"])
+                        if j in vis_steps:
+                            vis[j] = dict(out, **batch) if augment is not None else out
+                return torch.stack(metrics), vis
 
-        static, captured, out = self._graph_for(chunk, start, augment)
-        metrics = torch.empty((stop - start,) + tuple(out["metrics"].shape),
-                              dtype=out["metrics"].dtype, device=self.device)
-        vis = {}
-        for j in range(start, stop):
-            for k, v in static.items():
-                v.copy_(chunk[k][j])
-            self._load_rates()
-            captured.replay()
-            self._advance_schedules()
-            self.graph_stats["replays"] += 1
-            metrics[j - start].copy_(out["metrics"])
-            if j in vis_steps:
-                vis[j] = _clone_tree(out)
-        return metrics, vis
+            static, captured, out = self._graph_for(chunk, start, augment)
+            metrics = torch.empty((stop - start,) + tuple(out["metrics"].shape),
+                                  dtype=out["metrics"].dtype, device=self.device)
+            vis = {}
+            for j in range(start, stop):
+                with span("trainer.step"):
+                    for k, v in static.items():
+                        v.copy_(chunk[k][j])
+                    self._load_rates()
+                    captured.replay()
+                    self._advance_schedules()
+                    self.graph_stats["replays"] += 1
+                    metrics[j - start].copy_(out["metrics"])
+                    if j in vis_steps:
+                        vis[j] = _clone_tree(out)
+            return metrics, vis
 
     @property
     def graph(self):

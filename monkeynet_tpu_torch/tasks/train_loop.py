@@ -80,6 +80,7 @@ from monkeynet_tpu_torch.tasks.train import Trainer, largest_divisor_leq, metric
 from monkeynet_tpu_torch.utils.checkpoint import load_any
 from monkeynet_tpu_torch.utils.device import require_device
 from monkeynet_tpu_torch.utils.logger import Logger
+from monkeynet_tpu_torch.utils.tracing import span
 
 # torch.profiler covers these steps when `profile_dir` is given, as the JAX
 # package's trace does.
@@ -222,17 +223,19 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
                 vis_steps = [j for j in range(a, b) if (it + j - a) % logger.log_freq == 0]
                 metrics, visuals = trainer.run(staged, a, b, vis_steps, augment=augment,
                                                graph=k > 1)
-                logger.stage_payload(payload)
+                with span("loop.log"):
+                    logger.stage_payload(payload)
                 if profiler is not None and it + b - a > PROFILE_STEPS[1]:
                     _stop_profiler(profiler, device, profile_dir)
                     profile_dir = None
                     profiler = None
                 last_metrics = metrics[-1]
-                logger.log_chunk(
-                    it, names, metrics, b - a,
-                    vis=lambda j, a=a, host=host, visuals=visuals: _vis(
-                        None if augment is not None else host, a + j, visuals[a + j], group),
-                )
+                with span("loop.log"):
+                    logger.log_chunk(
+                        it, names, metrics, b - a,
+                        vis=lambda j, a=a, host=host, visuals=visuals: _vis(
+                            None if augment is not None else host, a + j, visuals[a + j], group),
+                    )
                 metrics = visuals = None
                 it += b - a
                 steps += b - a
@@ -242,7 +245,8 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
                     # checkpoint, if one is due, holds its end state.
                     epoch_steps %= steps_per_epoch
                     finished = eps[b - 1 - epoch_steps]
-                    logger.log_epoch(finished, payload, prev_epoch=last_finished)
+                    with span("loop.checkpoint"):
+                        logger.log_epoch(finished, payload, prev_epoch=last_finished)
                     last_finished = finished
             if first_chunk_s is None:
                 if device.type == "cuda":
