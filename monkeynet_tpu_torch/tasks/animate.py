@@ -5,7 +5,13 @@ given its keypoints, so the generator takes all driving frames of a chunk at
 once (the frame axis folds into the conv batch). Long videos run in chunks of
 `chunk` frames; a short tail is padded to a 16-frame bucket by repeating its
 last frame, as the JAX package does to bound its compiled program count, so
-both packages run the same batch shapes. Outputs stay on the device.
+both packages run the same batch shapes. Animator's and KPExtractor's
+outputs stay on the device. On a CUDA device TransferEngine delivers its
+answer to the host itself, a chunk at a time, into host tensors that the
+caller owns: each chunk's outputs are copied on a copy stream while the
+next chunk computes, straight from the device for small frames and through
+a pinned staging ring of two slots for large ones (`_StagingRing`). On the
+CPU its outputs are the chunks' tensors concatenated.
 
 `dtype=torch.bfloat16` runs the networks in bf16 (weights, batch-norm
 statistics and activations cast, as the JAX package casts its variables);
@@ -22,6 +28,7 @@ device may be named more than once (its slabs then share one replica).
 from __future__ import annotations
 
 import copy
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -148,6 +155,146 @@ class Animator(_Sharded):
         return {k: _cat(v) for k, v in outs.items()}
 
 
+def _map_rows(outs: List[np.ndarray], lo: int, hi: int) -> None:
+    """Write frames lo:hi (axis 1) of each array once, so that the memory
+    behind them is mapped before a copy into them: the first write to fresh
+    host memory maps its pages, and on the H100 machine's host runs at 4-5
+    GB/s against 24-33 GB/s into mapped pages. numpy's fill releases the
+    interpreter lock and runs on one core."""
+    for out in outs:
+        out[:, lo:hi].fill(0)
+
+
+class _StagingRing:
+    """Delivers one call's outputs to host tensors, a chunk at a time.
+
+    `begin(frames)` opens a call of a `frames`-frame video and makes its
+    host outputs with `torch.empty` at the video's length, owned by the
+    caller: no caller holds a slot. `put(outs)` takes a chunk's outputs,
+    tensors (B, n, ...) on `device` whose frame axis runs on from the
+    previous chunk's (n is `chunk` for each chunk but the last, which may
+    be padded), and copies the first min(n, frames left) frames of the
+    previous chunk's into its rows of the host outputs (span
+    `transfer.deliver`): the engine puts a chunk once it has launched it,
+    so on the card chunk i's copy to the host runs while chunk i + 1
+    computes. `finish()` copies the last chunk's and returns the host
+    outputs. Each copy waits until the device has made its chunk.
+
+    How a chunk reaches the host follows its frames' size. A frame of
+    `RING_FRAME_BYTES` or more (a 256x256 video's answer, 1.6 MB a frame)
+    goes through a staging ring of two slots an output: chunk i is copied
+    into slot i mod 2 (on a CUDA device on the ring's copy stream once the
+    compute stream's work so far is done, non-blocking into pinned slots,
+    ending in an event), and the host copies it out of its slot; a thread
+    of the ring writes each chunk's rows of the host outputs once ahead of
+    that copy (`_map_rows`), from `begin` on where the call's outputs have
+    the frame shapes of the last call's, and the copy takes the rows only
+    when that write is done or was never started. A smaller frame (a 64x64
+    video's, 98 KB) is copied straight from the device into the host
+    outputs, on the copy stream: an engine that small is held back by its
+    host, which a slot's second copy and the thread's writes slow (on an
+    H100 host, 64x64 answers of 2 to 8 chunks read 7-27% fewer frames/s
+    through the ring than copied straight; 256x256 answers in chunks of
+    128 frames 18-28% more, in smaller chunks within 3%; PERF.md §6).
+
+    A slot is `chunk` frames wide, made at the first use of an output's
+    size and dtype and kept, so pinned memory stays at two chunks an output
+    whatever the videos' lengths. On another device the slots are plain
+    host memory and every copy is synchronous.
+    """
+
+    RING_FRAME_BYTES = 1 << 20
+
+    def __init__(self, chunk: int, device):
+        self.chunk, self.device = chunk, device
+        self.cuda = device.type == "cuda"
+        self.stream = torch.cuda.Stream(device) if self.cuda else None
+        self.slots: List[List[torch.Tensor]] = []
+        self.mapper = ThreadPoolExecutor(1, thread_name_prefix="transfer-deliver")
+        self.rows = self.outs = self.pending = None
+        self.ring, self.mapped = False, {}
+
+    def begin(self, frames: int) -> None:
+        self.frames, self.start, self.count = frames, 0, 0
+        self.pending = None
+        self._allocate(self.rows)
+
+    def _allocate(self, rows) -> None:
+        """The call's host outputs, one (B, frames, *shape) tensor of dtype
+        for each (B, shape, dtype) of `rows`, and, for frames that take the
+        ring, the mapper's jobs on them by chunk index."""
+        for job in self.mapped.values():  # of a call that raised, or of other shapes
+            job.cancel()
+        self.rows, self.outs, self.mapped = rows, None, {}
+        if rows is None:
+            return
+        self.outs = [torch.empty((b, self.frames, *shape), dtype=dtype)
+                     for b, shape, dtype in rows]
+        frame_bytes = sum(out[0, 0].numel() * out.element_size() for out in self.outs)
+        self.ring = frame_bytes >= self.RING_FRAME_BYTES
+        if self.ring:
+            arrays = [out.view(torch.uint8).numpy() for out in self.outs]
+            self.mapped = {i: self.mapper.submit(_map_rows, arrays, lo, lo + self.chunk)
+                           for i, lo in enumerate(range(0, self.frames, self.chunk))}
+
+    def _slot(self, j: int, x) -> torch.Tensor:
+        """Slot count mod 2 of output j, viewed as x's shape."""
+        size = x.shape[0] * self.chunk * x[0, 0].numel()
+        if j == len(self.slots):
+            self.slots.append([])
+        ring = self.slots[j]
+        if not ring or ring[0].numel() != size or ring[0].dtype != x.dtype:
+            ring[:] = [torch.empty(size, dtype=x.dtype, pin_memory=self.cuda) for _ in range(2)]
+        return ring[self.count % 2][: x.numel()].view(x.shape)
+
+    def put(self, outs: List[torch.Tensor]) -> None:
+        n = min(outs[0].shape[1], self.frames - self.start)
+        outs = [x[:, :n] for x in outs]
+        rows = [(x.shape[0], tuple(x.shape[2:]), x.dtype) for x in outs]
+        if rows != self.rows:
+            self._allocate(rows)
+        staged, done = outs, None
+        if self.ring:
+            staged = [self._slot(j, x) for j, x in enumerate(outs)]
+            if self.cuda:
+                self.stream.wait_stream(torch.cuda.current_stream(self.device))
+                with torch.cuda.stream(self.stream):
+                    for slot, x in zip(staged, outs):
+                        # the allocator may not hand x's memory to the next
+                        # chunk before this stream has read it
+                        x.record_stream(self.stream)
+                        slot.copy_(x, non_blocking=True)
+                    done = self.stream.record_event()
+            else:
+                for slot, x in zip(staged, outs):
+                    slot.copy_(x)
+        elif self.cuda:
+            done = torch.cuda.current_stream(self.device).record_event()
+        previous, self.pending = self.pending, (self.count, done, staged, self.start, n)
+        self.start += n
+        self.count += 1
+        if previous is not None:
+            self._deliver(*previous)
+
+    def _deliver(self, i: int, done, staged, start: int, n: int) -> None:
+        """Chunk i into its rows, from its slots or (copied straight into
+        pageable memory, which returns once the copy is done) from the
+        device."""
+        if done is not None:
+            done.synchronize()
+        job = self.mapped.get(i)
+        if job is not None and not job.cancel():  # the mapper is on these rows or done
+            job.result()
+        with span("transfer.deliver"), torch.cuda.stream(self.stream):
+            for out, x in zip(self.outs, staged):
+                out[:, start : start + n].copy_(x)
+
+    def finish(self) -> List[torch.Tensor]:
+        self._deliver(*self.pending)
+        outs, self.outs, self.pending, self.mapped = self.outs, None, None, {}
+        return outs
+
+
 class TransferEngine(_Sharded):
     """The whole transfer pipeline per frame chunk: driving-kp detection,
     the relative move_location normalisation, and generation.
@@ -169,6 +316,7 @@ class TransferEngine(_Sharded):
         self.generators = _replicas(generator, self.devices, dtype)
         self.kp_detectors = _replicas(kp_detector, self.devices, dtype)
         self.generator, self.kp_detector = self.generators[0], self.kp_detectors[0]
+        self._ring = _StagingRing(self.chunk, self.device) if self.device.type == "cuda" else None
 
     def _normalize(self, kp_chunk, kp_first, kp_source):
         if not self.move_location:
@@ -181,9 +329,13 @@ class TransferEngine(_Sharded):
 
     @torch.no_grad()
     def __call__(self, source, driving) -> Dict:
-        """source (B,1,H,W,C), driving (B,D,H,W,C) -> dict of f32 device
-        tensors {'video_prediction', 'video_deformed', 'kp_driving',
-        'kp_source', 'kp_norm'}."""
+        """source (B,1,H,W,C), driving (B,D,H,W,C) -> dict of f32 tensors
+        {'video_prediction', 'video_deformed', 'kp_driving', 'kp_source',
+        'kp_norm'}. On a CUDA device they are host tensors that the caller
+        owns, each chunk's copied out while the next computes (span
+        `transfer.deliver` a chunk), and the call returns once the answer
+        is on the host; on the CPU they are the chunks' tensors
+        concatenated."""
         with span("transfer.video"):
             with span("transfer.upload"):
                 source = torch.as_tensor(source, device=self.device)
@@ -192,7 +344,9 @@ class TransferEngine(_Sharded):
                     source = source.to(self.dtype)
             d = driving.shape[1]
             sources = [source.to(dev) for dev in self.devices]
-            preds, defs, kps, norms = [], [], [], []
+            ring, parts = self._ring, []
+            if ring is not None:
+                ring.begin(d)
             kp_source = kp_sources = kp_firsts = None
             for start in range(0, d, self.chunk):
                 with span("transfer.chunk"):
@@ -216,19 +370,25 @@ class TransferEngine(_Sharded):
                         outs = [gen(*args) for gen, *args in
                                 zip(self.generators, sources, kp_norms, kp_sources)]
                     with span("transfer.gather"):
-                        preds.append(self._gather([o["video_prediction"] for o in outs],
-                                                  n_valid).float())
-                        defs.append(self._gather([o["video_deformed"] for o in outs],
-                                                 n_valid).float())
-                        kps.append({k: self._gather([c[k] for c in kp_chunks], n_valid)
-                                    for k in kp_chunks[0]})
-                        norms.append({k: self._gather([c[k] for c in kp_norms], n_valid)
-                                      for k in kp_norms[0]})
+                        keys = list(kp_chunks[0])
+                        part = [self._gather([o[k] for o in outs], n_valid).float()
+                                for k in ("video_prediction", "video_deformed")]
+                        part += [self._gather([c[k] for c in group], n_valid)
+                                 for group in (kp_chunks, kp_norms) for k in keys]
+                    if ring is None:
+                        parts.append(part)
+                    else:
+                        ring.put(part)
+            if ring is None:
+                pred, deformed, *kps = [_cat(list(chunks)) for chunks in zip(*parts)]
+            else:
+                pred, deformed, *kps = ring.finish()
+                kp_source = {k: v.cpu() for k, v in kp_source.items()}
             return {
-                "video_prediction": _cat(preds),
-                "video_deformed": _cat(defs),
-                "kp_driving": {k: _cat([o[k] for o in kps]) for k in kps[0]},
-                "kp_norm": {k: _cat([o[k] for o in norms]) for k in norms[0]},
+                "video_prediction": pred,
+                "video_deformed": deformed,
+                "kp_driving": dict(zip(keys, kps[:len(keys)])),
+                "kp_norm": dict(zip(keys, kps[len(keys):])),
                 "kp_source": kp_source,
             }
 

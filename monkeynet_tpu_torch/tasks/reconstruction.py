@@ -90,8 +90,8 @@ def reconstruction(config, log_dir, dataset, checkpoint, device="cuda",
             video = x["video"][None]  # (1, D, H, W, C)
             source = video[:, :1]
 
-            dev_out = engine(source, video)
-            out = to_numpy({k: dev_out[k] for k in
+            engine_out = engine(source, video)
+            out = to_numpy({k: engine_out[k] for k in
                             ("video_prediction", "video_deformed", "kp_driving", "kp_source")})
 
             def job(name=x["name"], source=source, video=video, out=out):
@@ -105,10 +105,11 @@ def reconstruction(config, log_dir, dataset, checkpoint, device="cuda",
 
             loss_list.append(float(np.abs(out["video_prediction"] - video).mean()))
             # kp_driving is the keypoints of the ground-truth frames; the
-            # generated frames stay on the card for their own.
-            kp_pred = kp_extractor(dev_out["video_prediction"])
+            # generated frames go back to the card for their own (on a CUDA
+            # device the engine's answer is on the host).
+            kp_pred = kp_extractor(engine_out["video_prediction"])
             akd_list.append(akd(out["kp_driving"], kp_pred, image_shape))
-            aed_list.append(aed(embedder(video), embedder(dev_out["video_prediction"])))
+            aed_list.append(aed(embedder(video), embedder(engine_out["video_prediction"])))
 
     metrics = {
         "l1": float(np.mean(loss_list)),

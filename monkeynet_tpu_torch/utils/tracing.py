@@ -22,7 +22,12 @@ The spans, by where they sit:
 - tasks/animate.py `TransferEngine.__call__`: `transfer.video` over the
   call, holding `transfer.upload` (the inputs onto the device and the
   source's cast) and one `transfer.chunk` a chunk, which holds
-  `transfer.detect`, `transfer.generate` and `transfer.gather`;
+  `transfer.detect`, `transfer.generate` and `transfer.gather`; on a CUDA
+  device, one `transfer.deliver` a chunk (`_StagingRing`): the chunk's copy
+  into the host answer, inside the next chunk's `transfer.chunk` (the last
+  chunk's after them); for frames of 1 MiB or more a host copy out of the
+  chunk's pinned staging slot, for smaller ones the copy straight from the
+  device into pageable memory;
 - tasks/train.py `Trainer.run`: `trainer.run` over the call, holding one
   `trainer.step` a step;
 - tasks/train_loop.py `train`: `loop.log` around the logger's staging and

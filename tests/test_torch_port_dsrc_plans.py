@@ -214,7 +214,7 @@ def _check_dsrc_plan(B, N, C, dtype, aligned, hw):
         while lo < hi:
             mid = (lo + hi + 1) // 2
             lo, hi = (mid, hi) if sort_bytes(mid) <= MAX_DYNAMIC_SHARED else (lo, mid - 1)
-        assert plan.rows == min(lo, max(1, chunk * (H + 1) // N, -(-(H + 1) // 128)))
+        assert plan.rows == min(lo, max(1, chunk * (H + 1) // max(N, 1), -(-(H + 1) // 128)))
         assert sort_bytes(plan.rows) == plan.shared_bytes <= MAX_DYNAMIC_SHARED
         # the first pass: a block takes the most words of every band's list
         # (up to 32, a power of two) that fit 48 KB of shared memory
