@@ -10,6 +10,7 @@ import pytest
 import torch
 
 from benchmarks import check, control, harness
+from benchmarks.tests import fixture
 
 SPEC = harness.Spec()
 
@@ -41,7 +42,7 @@ def test_transfer_control_is_not_correct(cell):
 
 
 @pytest.mark.card
-@pytest.mark.parametrize("cell", ["vox256.train"])
+@pytest.mark.parametrize("cell", fixture.cells("train"))
 def test_train_control_and_half_batch_are_not_correct(cell):
     device = _device(cell)
     check.set_float32_exact()

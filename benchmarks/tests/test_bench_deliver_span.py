@@ -39,7 +39,7 @@ def test_reader_reports_nothing_without_the_span():
 def test_the_transfer_cells_list_the_metric():
     spec = harness.Spec()
     (entry,) = [m for m in spec.data["per_layer"] if m["name"] == METRIC]
-    assert entry["workloads"] == ["taichi64.transfer", "vox256.transfer"]
+    assert entry["workloads"] == fixture.cells("transfer")
     for cell in entry["workloads"]:
         assert METRIC in {m["name"] for m in spec.per_layer(cell)}
         assert entry["moves"] in {m["name"] for m in spec.end_to_end(cell)}

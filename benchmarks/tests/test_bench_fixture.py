@@ -12,7 +12,7 @@ from benchmarks.tests import fixture
 def test_harness_finds_added_files(tmp_path):
     root = fixture.make_root(tmp_path)
     bench = root / "benchmarks"
-    config = dict(fixture.tiny_config("taichi64"), name="fixture64")
+    config = dict(json.loads((bench / "configs" / "taichi64.json").read_text()), name="fixture64")
     (bench / "configs" / "fixture64.json").write_text(json.dumps(config))
     traffic = json.loads((bench / "traffic" / "train_dispatches.json").read_text())
     (bench / "traffic" / "train_fixture.json").write_text(json.dumps(dict(traffic, pool_clips=2)))

@@ -1,6 +1,7 @@
 """The span arithmetic (benchmarks/spans.py) on synthetic records, its
 readers on records with and without the program's spans, and a traced CPU
-dry run of each cell that reports the cell's span metrics."""
+dry run of each cell that reports the cell's span metrics: the per-layer
+metrics of source `program_span` that list it in BENCHMARK.json."""
 
 from __future__ import annotations
 
@@ -11,15 +12,11 @@ import pytest
 from benchmarks import harness, run, spans, trace
 from benchmarks.tests import fixture
 
-SPAN_METRICS = {
-    "taichi64.transfer": {"driver.engine_host_us_per_frame.transfer",
-                          "driver.upload_us_per_frame.transfer",
-                          "driver.engine_idle_pct.transfer"},
-    "vox256.transfer": {"driver.engine_host_us_per_frame.transfer",
-                        "driver.upload_us_per_frame.transfer",
-                        "driver.engine_idle_pct.transfer"},
-    "vox256.train": {"trainer.host_ms_per_step.train"},
-}
+CELLS = fixture.cells()
+# A span that the program records only on a CUDA device: on the CPU the engine
+# hands back its own tensors and delivers nothing (test_bench_deliver_span.py
+# checks that the line leaves the metric out there).
+CARD_ONLY = {"driver.deliver_us_per_frame.transfer"}
 
 
 def _trace(host, device=(), window_s=1.0):
@@ -67,7 +64,7 @@ def test_a_span_cut_by_the_window_counts_its_part_inside(monkeypatch):
     assert spans.idle_seconds(records, "transfer.video") == pytest.approx(600e-9)
 
 
-@pytest.mark.parametrize("metric", sorted(set().union(*SPAN_METRICS.values())))
+@pytest.mark.parametrize("metric", sorted({m for c in CELLS for m in fixture.span_metrics(c)}))
 def test_readers_return_none_without_their_span(metric):
     spec = harness.Spec()
     records = {"trace": _trace([("aten::mul", 0.0, 0.5), ("bench.other", 0.1, 0.2)],
@@ -76,7 +73,7 @@ def test_readers_return_none_without_their_span(metric):
     assert spec.reader(metric)(records) is None
     with_span = dict(records, trace=_trace(
         [("transfer.video", 0.0, 1.0), ("transfer.upload", 0.0, 0.1),
-         ("trainer.step", 0.0, 0.5)], [("k", 0.0, 0.5)]))
+         ("transfer.deliver", 0.2, 0.3), ("trainer.step", 0.0, 0.5)], [("k", 0.0, 0.5)]))
     assert spec.reader(metric)(with_span) > 0
 
 
@@ -85,13 +82,14 @@ def root(tmp_path_factory):
     return fixture.make_root(tmp_path_factory.mktemp("bench"))
 
 
-@pytest.mark.parametrize("cell", sorted(SPAN_METRICS))
+@pytest.mark.parametrize("cell", sorted(CELLS))
 def test_traced_dry_run_reports_the_span_metrics(root, cell):
+    expected = set(fixture.span_metrics(cell, root)) - CARD_ONLY
     line, _, _ = run.drive(root, cell, 2 ** 31 + 54321, 0.5, 1, "cpu")
     out = json.loads(line)
-    assert SPAN_METRICS[cell] <= set(out["metrics"])
-    assert all(out["metrics"][m]["value"] > 0 for m in SPAN_METRICS[cell])
-    if cell != "vox256.train":
+    assert expected <= set(out["metrics"])
+    assert all(out["metrics"][m]["value"] > 0 for m in expected)
+    if cell in fixture.cells("transfer", root):
         assert (out["metrics"]["driver.upload_us_per_frame.transfer"]["value"]
                 < out["metrics"]["driver.engine_host_us_per_frame.transfer"]["value"])
         # on the CPU nothing runs on a device: the engine's share of the
