@@ -10,6 +10,19 @@ Parameter names and layouts are the reference's state_dict: conv weights are
 running_mean, running_var and num_batches_tracked; blocks are
 `down_blocks.i`, `up_blocks.i`, and so on. A published checkpoint loads
 with plain `load_state_dict`.
+
+Carried widths. cuDNN's NHWC tensor-core convolutions take a channel count
+aligned to 8 (bf16; 4 in f32) and copy any other input into a padded buffer
+before every call. So every activation the networks build themselves and
+feed to a conv (a concat, the refinement chain, the dense motion's grouped
+output) is carried at `carried(width)` channels, the channels past the
+reference's width zeros at the end. A conv that takes such an input gets
+zero weight columns there, and one that emits it zero weight rows and zero
+bias; a batch norm over it scale 0 and shift 0, so the zero channels stay
+exactly 0 in eval and in training. The padded weights are derived from the
+parameters at the call (`_carry`), never stored: parameters, buffers and
+state_dict keep the reference's shapes. Which activations are carried
+follows from the widths a module is built with alone.
 """
 
 from __future__ import annotations
@@ -25,14 +38,65 @@ from torch import nn
 from monkeynet_tpu_torch.ops.sampling import resize_nearest
 from monkeynet_tpu_torch.parallel.distributed import all_reduce_sum
 
+ALIGN = 8
 
-class Conv3D(nn.Module):
+
+def carried(features: int) -> int:
+    """The width at which the networks carry an activation of `features`
+    channels that they build themselves: a multiple of ALIGN."""
+    return -(-features // ALIGN) * ALIGN
+
+
+def cat_carried(parts: Sequence[torch.Tensor], width: int) -> torch.Tensor:
+    """torch.cat of `parts` on the channel (last) axis, with zero channels
+    appended up to `width` in the same cat."""
+    pad = width - sum(p.shape[-1] for p in parts)
+    if pad:
+        last = parts[-1]
+        parts = [*parts, last.new_zeros(()).expand(*last.shape[:-1], pad)]
+    return torch.cat(parts, dim=-1)
+
+
+def _carry(module: nn.Module, sources: Sequence[torch.Tensor], make):
+    """make(): the module's tensors padded to its carried width. Made at the
+    call where autograd or a CUDA-graph capture may see them (a training
+    forward pads inside the graph, and autograd slices the gradient back);
+    in eval without autograd made once and kept until one of `sources`
+    changes in place or is replaced (its storage or version), or the module
+    is moved or cast (`_apply`)."""
+    if (module.training or torch.is_grad_enabled()
+            or (sources[0].is_cuda and torch.cuda.is_current_stream_capturing())):
+        return make()
+    key = tuple((t.data_ptr(), t._version) for t in sources)
+    if module._carry_key != key:
+        module._carry, module._carry_key = make(), key
+    return module._carry
+
+
+class _Carrying(nn.Module):
+    """A module whose padded tensors `_carry` keeps between eval calls."""
+
+    def __init__(self):
+        super().__init__()
+        self._carry = self._carry_key = None
+
+    def _apply(self, fn, recurse=True):
+        self._carry = self._carry_key = None
+        return super()._apply(fn, recurse)
+
+
+class Conv3D(_Carrying):
     """Conv over (B, D, H, W, C) with a depth-1 kernel and torch's default
     init, U(+-1/sqrt(fan_in)) for weight and bias. `groups` is torch's
-    grouped convolution (the JAX package's block-diagonal conv)."""
+    grouped convolution (the JAX package's block-diagonal conv).
+
+    `carried_in` is the width of the input as it arrives (`in_features`
+    channels, then zeros), `carried_out` the width of the output (zeros past
+    `out_features`); both default to the reference's widths."""
 
     def __init__(self, in_features: int, out_features: int,
-                 kernel_size=(1, 3, 3), padding=(0, 1, 1), groups: int = 1):
+                 kernel_size=(1, 3, 3), padding=(0, 1, 1), groups: int = 1,
+                 carried_in: Optional[int] = None, carried_out: Optional[int] = None):
         super().__init__()
         kt, kh, kw = kernel_size
         if kt != 1 or padding[0] != 0:
@@ -44,6 +108,11 @@ class Conv3D(nn.Module):
             )
         self.padding = (padding[1], padding[2])
         self.groups = groups
+        self.carried_in = carried_in or in_features
+        self.carried_out = carried_out or out_features
+        self._pad = (self.carried_in - in_features, self.carried_out - out_features)
+        if groups != 1 and self._pad != (0, 0):
+            raise ValueError("a grouped conv keeps the reference's widths")
         self.weight = nn.Parameter(
             torch.empty(out_features, in_features // groups, kt, kh, kw)
         )
@@ -65,12 +134,20 @@ class Conv3D(nn.Module):
             else:
                 self.bias.uniform_(-bound, bound, generator=generator)
 
+    def _padded(self):
+        pad_in, pad_out = self._pad
+        weight = F.pad(self.weight, (0, 0, 0, 0, 0, 0, 0, pad_in, 0, pad_out))
+        return weight, (F.pad(self.bias, (0, pad_out)) if pad_out else self.bias)
+
     def forward(self, x):
         B, D, H, W, C = x.shape
+        weight, bias = self.weight, self.bias
+        if self._pad != (0, 0):
+            weight, bias = _carry(self, (weight, bias), self._padded)
         y = F.conv2d(
             x.reshape(B * D, H, W, C).permute(0, 3, 1, 2),
-            self.weight[:, :, 0],
-            self.bias,
+            weight[:, :, 0],
+            bias,
             padding=self.padding,
             groups=self.groups,
         )
@@ -78,7 +155,7 @@ class Conv3D(nn.Module):
         return y.reshape(B, D, y.shape[1], y.shape[2], y.shape[3])
 
 
-class SyncBatchNorm(nn.Module):
+class SyncBatchNorm(_Carrying):
     """Batch norm over the channel (last) axis.
 
     Eval normalises with the running statistics. Train mode computes the
@@ -95,12 +172,20 @@ class SyncBatchNorm(nn.Module):
     with the batch's statistics as in training but leaves the running ones
     alone: the recompute of a rematerialised forward must not update them a
     second time.
+
+    `carried` is the width of the input (`features` channels, then zeros):
+    the zero channels get scale 0 and shift 0 (mean 0 and variance 1 in
+    eval), so they leave as zeros; their batch statistics are 0 and stay
+    out of the running ones.
     """
 
-    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5):
+    def __init__(self, features: int, momentum: float = 0.1, eps: float = 1e-5,
+                 carried: Optional[int] = None):
         super().__init__()
         self.momentum = momentum
         self.eps = eps
+        self.features = features
+        self.carried = carried or features
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -117,9 +202,22 @@ class SyncBatchNorm(nn.Module):
             self.running_var.fill_(1.0)
             self.num_batches_tracked.zero_()
 
+    def _padded(self):
+        pad = (0, self.carried - self.features)
+        weight, bias = F.pad(self.weight, pad), F.pad(self.bias, pad)
+        if self.training:
+            return weight, bias, None, None
+        return (weight, bias, F.pad(self.running_mean, pad),
+                F.pad(self.running_var, pad, value=1.0))
+
     def forward(self, x):
+        weight, bias = self.weight, self.bias
+        running_mean, running_var = self.running_mean, self.running_var
+        if self.carried != self.features:
+            weight, bias, running_mean, running_var = _carry(
+                self, (weight, bias, running_mean, running_var), self._padded)
         if not self.training:
-            mean, var = self.running_mean, self.running_var
+            mean, var = running_mean, running_var
         else:
             xf = x.float().reshape(-1, x.shape[-1])
             s, ss = xf.sum(dim=0), (xf * xf).sum(dim=0)
@@ -132,13 +230,13 @@ class SyncBatchNorm(nn.Module):
             var = torch.clamp(ss / cnt - mean * mean, min=0.0)
             if self.update_running_stats:
                 with torch.no_grad():
-                    m = self.momentum
-                    unbiased = var * (cnt / torch.clamp(cnt - 1.0, min=1.0))
-                    self.running_mean.mul_(1.0 - m).add_(m * mean.to(self.running_mean.dtype))
+                    m, f = self.momentum, self.features
+                    unbiased = var[:f] * (cnt / torch.clamp(cnt - 1.0, min=1.0))
+                    self.running_mean.mul_(1.0 - m).add_(m * mean[:f].to(self.running_mean.dtype))
                     self.running_var.mul_(1.0 - m).add_(m * unbiased.to(self.running_var.dtype))
                     self.num_batches_tracked.add_(1)
         inv = torch.rsqrt(var + self.eps)
-        return (x - mean.to(x.dtype)) * (inv * self.weight).to(x.dtype) + self.bias.to(x.dtype)
+        return (x - mean.to(x.dtype)) * (inv * weight).to(x.dtype) + bias.to(x.dtype)
 
 
 def set_process_group(module: nn.Module, group) -> nn.Module:
@@ -201,9 +299,10 @@ def avg_pool_2x2(x):
 class DownBlock(nn.Module):
     """conv -> BN -> relu -> (1, 2, 2) avg-pool (encoder step)."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 carried_in: Optional[int] = None):
         super().__init__()
-        self.conv = Conv3D(in_features, out_features)
+        self.conv = Conv3D(in_features, out_features, carried_in=carried_in)
         self.norm = SyncBatchNorm(out_features)
 
     def forward(self, x):
@@ -214,9 +313,10 @@ class UpBlock(nn.Module):
     """Nearest 2x upsample -> conv3x3 -> BN -> relu (decoder step). The JAX
     package fuses the upsample into the conv; the math is the same."""
 
-    def __init__(self, in_features: int, out_features: int):
+    def __init__(self, in_features: int, out_features: int,
+                 carried_in: Optional[int] = None):
         super().__init__()
-        self.conv = Conv3D(in_features, out_features)
+        self.conv = Conv3D(in_features, out_features, carried_in=carried_in)
         self.norm = SyncBatchNorm(out_features)
 
     def forward(self, x):
@@ -239,14 +339,15 @@ class SameBlock(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """Pre-activation residual block: (BN-relu-conv) x2 + skip."""
+    """Pre-activation residual block: (BN-relu-conv) x2 + skip, in and out
+    at the width `carried` (zeros past `features`)."""
 
-    def __init__(self, features: int):
+    def __init__(self, features: int, carried: Optional[int] = None):
         super().__init__()
-        self.norm1 = SyncBatchNorm(features)
-        self.conv1 = Conv3D(features, features)
-        self.norm2 = SyncBatchNorm(features)
-        self.conv2 = Conv3D(features, features)
+        self.norm1 = SyncBatchNorm(features, carried=carried)
+        self.conv1 = Conv3D(features, features, carried_in=carried, carried_out=carried)
+        self.norm2 = SyncBatchNorm(features, carried=carried)
+        self.conv2 = Conv3D(features, features, carried_in=carried, carried_out=carried)
 
     def forward(self, x):
         out = self.conv1(F.relu(self.norm1(x)))
@@ -262,15 +363,17 @@ def hourglass_channels(block_expansion: int, num_blocks: int, max_features: int)
 
 
 class Encoder(nn.Module):
-    """Stack of DownBlocks; returns every map [x, f1, ..., fn]."""
+    """Stack of DownBlocks; returns every map [x, f1, ..., fn]. The input
+    arrives `carried_in` wide."""
 
     def __init__(self, block_expansion: int, in_features: int, num_blocks: int = 3,
-                 max_features: int = 256):
+                 max_features: int = 256, carried_in: Optional[int] = None):
         super().__init__()
         chans = hourglass_channels(block_expansion, num_blocks, max_features)
         ins = [in_features] + chans[:-1]
         self.down_blocks = nn.ModuleList(
-            DownBlock(i, o) for i, o in zip(ins, chans)
+            DownBlock(i, o, carried_in if n == 0 else None)
+            for n, (i, o) in enumerate(zip(ins, chans))
         )
 
     def forward(self, x) -> List[torch.Tensor]:
@@ -285,46 +388,65 @@ class Decoder(nn.Module):
 
     `additional_features` is the width of the maps the caller has already
     concatenated onto every skip, the bottleneck included (the generator's
-    kp embedding). With use_last_conv=False it returns the final concat
-    (`out_channels` wide) for an external head.
+    kp embedding), each such skip carried at `skip_widths[i]`; without them
+    the input skip arrives `carried_in` wide and the encoder's maps as they
+    are. Every concat is carried (`cat_widths`). With use_last_conv=False it
+    returns the final concat, `out_channels` wide carried at `out_carried`,
+    for an external head.
     """
 
     def __init__(self, block_expansion: int, in_features: int, out_features: int = 3,
                  num_blocks: int = 3, max_features: int = 256,
-                 additional_features: int = 0, use_last_conv: bool = True):
+                 additional_features: int = 0, use_last_conv: bool = True,
+                 carried_in: Optional[int] = None):
         super().__init__()
-        blocks = []
+        widths = [in_features] + hourglass_channels(block_expansion, num_blocks, max_features)
+        if additional_features:
+            if carried_in not in (None, in_features):
+                raise ValueError("a carried input takes no additional features")
+            self.skip_widths = [carried(c + additional_features) for c in widths]
+        else:
+            self.skip_widths = [carried_in or in_features] + widths[1:]
+        blocks, self.cat_widths = [], []
+        width = self.skip_widths[-1]
         for i in range(num_blocks - 1, -1, -1):
             mult = 1 if i == num_blocks - 1 else 2
             in_filters = mult * min(max_features, block_expansion * (2 ** (i + 1)))
             out_filters = min(max_features, block_expansion * (2**i))
-            blocks.append(UpBlock(in_filters + additional_features, out_filters))
+            blocks.append(UpBlock(in_filters + additional_features, out_filters, width))
+            width = carried(out_filters + self.skip_widths[i])
+            self.cat_widths.append(width)
         self.up_blocks = nn.ModuleList(blocks)
         self.out_channels = block_expansion + in_features + additional_features
+        self.out_carried = width
         if use_last_conv:
-            self.conv = Conv3D(self.out_channels, out_features)
+            self.conv = Conv3D(self.out_channels, out_features, carried_in=width)
         else:
             self.conv = None
 
     def forward(self, skips: Sequence[torch.Tensor]):
         skips = list(skips)
         out = skips.pop()
-        for block in self.up_blocks:
-            out = torch.cat([block(out), skips.pop()], dim=-1)
+        for block, width in zip(self.up_blocks, self.cat_widths):
+            out = cat_carried([block(out), skips.pop()], width)
         if self.conv is not None:
             out = self.conv(out)
         return out
 
 
 class Hourglass(nn.Module):
-    """Encoder followed by Decoder (keypoint / dense-motion predictor body)."""
+    """Encoder followed by Decoder (keypoint / dense-motion predictor body),
+    its input `carried_in` wide."""
 
     def __init__(self, block_expansion: int, in_features: int, out_features: int,
-                 num_blocks: int = 3, max_features: int = 256):
+                 num_blocks: int = 3, max_features: int = 256,
+                 carried_in: Optional[int] = None):
         super().__init__()
-        self.encoder = Encoder(block_expansion, in_features, num_blocks, max_features)
+        self.encoder = Encoder(block_expansion, in_features, num_blocks, max_features,
+                               carried_in)
         self.decoder = Decoder(
-            block_expansion, in_features, out_features, num_blocks, max_features
+            block_expansion, in_features, out_features, num_blocks, max_features,
+            carried_in=carried_in,
         )
 
     def forward(self, x):

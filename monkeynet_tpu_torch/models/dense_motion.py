@@ -6,7 +6,10 @@ Counterpart of monkeynet_tpu/models/dense_motion.py:
   -> softmax over the K+1 mask logits
   grid = sum_k mask_k * (kp_source - kp_driving)_k (+ correction) + identity
 
-The hourglass's final conv starts at zero with bias `bg_init` on the
+The last grouped block's leaky-relu writes into the first channels of a
+buffer carried at a multiple of 8 channels, zeros past the embedding's
+width (a grouped conv cannot emit them), and the hourglass takes it at that
+width. The hourglass's final conv starts at zero with bias `bg_init` on the
 background logit, so an untrained model is the identity deformation. The
 sampling grid is f32 under any network dtype; on CUDA the combine runs in
 the combine kernel.
@@ -20,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from monkeynet_tpu_torch.models.blocks import Hourglass, SameBlock
+from monkeynet_tpu_torch.models.blocks import Hourglass, SameBlock, carried
 from monkeynet_tpu_torch.models.movement_embedding import MovementEmbedding
 from monkeynet_tpu_torch.ops.cuda.combine import combine
 from monkeynet_tpu_torch.ops.grid import make_coordinate_grid
@@ -34,6 +37,28 @@ def identity_deformation(source_image, kp_driving):
     D = kp_driving["mean"].shape[1]
     grid = make_coordinate_grid((h, w), dtype=torch.float32, device=source_image.device)
     return grid[None, None].expand(B, D, h, w, 2)
+
+
+class _LeakyReluCarried(torch.autograd.Function):
+    """leaky_relu(x) written into the first channels of a buffer `width`
+    channels wide whose other channels are zeros."""
+
+    @staticmethod
+    def forward(ctx, x, slope: float, width: int):
+        c = x.shape[-1]
+        out = x.new_empty(*x.shape[:-1], width)
+        torch.ops.aten.leaky_relu.out(x, slope, out=out[..., :c])
+        out[..., c:].zero_()
+        ctx.save_for_backward(x)
+        ctx.slope = slope
+        return out
+
+    @staticmethod
+    def backward(ctx, grad):
+        (x,) = ctx.saved_tensors
+        grad_x = torch.ops.aten.leaky_relu_backward(
+            grad[..., : x.shape[-1]], x, ctx.slope, False)
+        return grad_x, None, None
 
 
 class DenseMotion(nn.Module):
@@ -58,7 +83,9 @@ class DenseMotion(nn.Module):
         )
         num_mask_ch = (num_kp + 1) * int(use_mask)
         out_ch = num_mask_ch + 2 * int(use_correction)
-        self.hourglass = Hourglass(block_expansion, ch, out_ch, num_blocks, max_features)
+        self.embed_width = carried(ch) if num_group_blocks else ch
+        self.hourglass = Hourglass(block_expansion, ch, out_ch, num_blocks, max_features,
+                                   self.embed_width)
         head = self.hourglass.decoder.conv
         head.zero_weight = True
         head.bias_values = (
@@ -74,8 +101,12 @@ class DenseMotion(nn.Module):
                 (int(H * self.scale_factor), int(W * self.scale_factor)),
             )
         embed = self.mask_embedding(source_image, kp_driving, kp_source)
-        for block in self.group_blocks:
-            embed = F.leaky_relu(block(embed), 0.2)
+        for i, block in enumerate(self.group_blocks, 1):
+            embed = block(embed)
+            if i == len(self.group_blocks) and self.embed_width > embed.shape[-1]:
+                embed = _LeakyReluCarried.apply(embed, 0.2, self.embed_width)
+            else:
+                embed = F.leaky_relu(embed, 0.2)
         prediction = self.hourglass(embed)
         B, D, h, w, _ = prediction.shape
 

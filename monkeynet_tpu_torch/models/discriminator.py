@@ -1,7 +1,8 @@
 """Pix2Pix-style patch discriminator over videos.
 
 Counterpart of monkeynet_tpu/models/discriminator.py: optional nearest
-pre-downscale; the kp-embedding heatmaps concatenated onto the input;
+pre-downscale; the kp-embedding heatmaps concatenated onto the input, the
+concat carried at a multiple of 8 channels (blocks.carried);
 `num_blocks` down blocks, each a VALID (1, 4, 4) conv, InstanceNorm on every
 block but the first, leaky-relu 0.2 and (1, 2, 2) avg-pool; a 1x1 score conv.
 Returns every map, [input, feat_1, ..., feat_n, score], for the
@@ -21,7 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from monkeynet_tpu_torch.models.blocks import Conv3D, InstanceNorm, avg_pool_2x2
+from monkeynet_tpu_torch.models.blocks import Conv3D, InstanceNorm, avg_pool_2x2, carried, cat_carried
 from monkeynet_tpu_torch.models.movement_embedding import MovementEmbedding
 from monkeynet_tpu_torch.ops.sampling import resize_nearest
 
@@ -30,9 +31,10 @@ class DiscDownBlock(nn.Module):
     """VALID (1, k, k) conv -> [InstanceNorm] -> leaky-relu(0.2) -> avg-pool."""
 
     def __init__(self, in_features: int, out_features: int, norm: bool = False,
-                 kernel_size: int = 4):
+                 kernel_size: int = 4, carried_in: Optional[int] = None):
         super().__init__()
-        self.conv = Conv3D(in_features, out_features, (1, kernel_size, kernel_size), (0, 0, 0))
+        self.conv = Conv3D(in_features, out_features, (1, kernel_size, kernel_size), (0, 0, 0),
+                           carried_in=carried_in)
         self.norm = InstanceNorm(out_features) if norm else None
 
     def forward(self, x):
@@ -50,17 +52,20 @@ class Discriminator(nn.Module):
         super().__init__()
         self.scale_factor = scale_factor
         self.kp_embedding = None
-        in_features = num_channels
+        in_features = width = num_channels
         if kp_embedding_params is not None:
             self.kp_embedding = MovementEmbedding(
                 num_kp=num_kp, kp_variance=kp_variance, num_channels=num_channels,
                 **kp_embedding_params,
             )
             in_features += self.kp_embedding.out_channels
+            width = carried(in_features)
+        self.in_width = width
         blocks = []
         for i in range(num_blocks):
             out_features = min(max_features, block_expansion * (2 ** (i + 1)))
-            blocks.append(DiscDownBlock(in_features, out_features, norm=(i != 0)))
+            blocks.append(DiscDownBlock(in_features, out_features, norm=(i != 0),
+                                        carried_in=width if i == 0 else None))
             in_features = out_features
         self.down_blocks = nn.ModuleList(blocks)
         self.conv = Conv3D(in_features, 1, (1, 1, 1), (0, 0, 0))
@@ -73,7 +78,7 @@ class Discriminator(nn.Module):
             x = resize_nearest(x, (int(H * self.scale_factor), int(W * self.scale_factor)))
         out = x
         if self.kp_embedding is not None:
-            out = torch.cat([x, self.kp_embedding(x, kp_driving, kp_source)], dim=-1)
+            out = cat_carried([x, self.kp_embedding(x, kp_driving, kp_source)], self.in_width)
         for block in self.down_blocks:
             out = block(out)
             out_maps.append(out)

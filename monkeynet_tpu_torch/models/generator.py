@@ -5,8 +5,9 @@ the source frame; dense backward flow from the dense-motion module; every
 encoder skip warped by the (resized) flow, the first of them, the source
 frame itself, also returned as video_deformed (the JAX package warps the
 source frame a second time for it); the kp
-embedding concatenated onto every skip; U-Net decode; ResBlock refinement;
-sigmoid. All driving frames go through as one batch (D folds into the conv
+embedding concatenated onto every skip, each skip carried at a multiple of
+8 channels (blocks.carried); U-Net decode; ResBlock refinement at the
+decoder's carried width; sigmoid. All driving frames go through as one batch (D folds into the conv
 batch). On CUDA the warps run in the warp kernel.
 """
 
@@ -17,7 +18,7 @@ from typing import Any, Dict, Optional, Union
 import torch
 from torch import nn
 
-from monkeynet_tpu_torch.models.blocks import Conv3D, Decoder, Encoder, ResBlock
+from monkeynet_tpu_torch.models.blocks import Conv3D, Decoder, Encoder, ResBlock, cat_carried
 from monkeynet_tpu_torch.models.dense_motion import DenseMotion, identity_deformation
 from monkeynet_tpu_torch.models.movement_embedding import MovementEmbedding
 from monkeynet_tpu_torch.ops.sampling import resize_video, warp_video
@@ -54,11 +55,13 @@ class MotionTransferGenerator(nn.Module):
             additional_features=embedding_features, use_last_conv=False,
         )
         features = self.video_decoder.out_channels
+        width = self.video_decoder.out_carried
         self.refinement_module = nn.Sequential()
         for i in range(num_refinement_blocks):
-            self.refinement_module.add_module(f"r{i}", ResBlock(features))
+            self.refinement_module.add_module(f"r{i}", ResBlock(features, width))
         self.refinement_module.add_module(
-            "conv-last", Conv3D(features, num_channels, (1, 1, 1), (0, 0, 0))
+            "conv-last",
+            Conv3D(features, num_channels, (1, 1, 1), (0, 0, 0), carried_in=width),
         )
 
     def _deform_input(self, inp, deformation):
@@ -85,12 +88,12 @@ class MotionTransferGenerator(nn.Module):
         if self.kp_embedding_module is not None:
             embedding = self.kp_embedding_module(source_image, kp_driving, kp_source)
             skips = [
-                torch.cat(
+                cat_carried(
                     [skip, resize_video(embedding, (skip.shape[2], skip.shape[3]),
                                         mode=self.interpolation_mode)],
-                    dim=-1,
+                    width,
                 )
-                for skip in skips
+                for skip, width in zip(skips, self.video_decoder.skip_widths)
             ]
         out = self.refinement_module(self.video_decoder(skips))
         return {
