@@ -126,18 +126,12 @@ Phases, each of which raises on failure:
      card against CPU, TransferEngine in bf16 and f32 at chunk 32 over 64
      driving frames and in bf16 at chunk 128, launches counted (the
      soft-argmax all 'split'), frames/s and peak memory;
- 11. the port's benchmark (bench_phase): `python -m monkeynet_tpu_torch.bench`
-     in a process of its own, its JSON line logged and checked (every key of
-     bench.py's line, finite rates above 0, the card's name, each kernel's
-     launches per 512-frame transfer pass and per train step, its FLOP
-     counts against a count from the layers' shapes made here), and its
-     `loader` mode on configs/actions.yaml.
 Then one JSON line with every kernel's numbers, the card's name and power
 limit, and the last line {"ok": true, "device": {...}}.
 
 It exits non-zero, with no result line, where CUDA is missing or where the
 repository is not beside it. It imports nothing of JAX. `--only PHASE ...`
-(kernels, parity, main, loop, dispatch, parallel, jaxckpt, vox_full, bench) runs
+(kernels, parity, main, loop, dispatch, parallel, jaxckpt, vox_full) runs
 only those phases after the build and prints no result line.
 """
 
@@ -175,7 +169,6 @@ WARP_IN_PATH = (True, True, True, True, True, True, False)
 # five skips past the raw source frame (which needs no gradient) for d_src.
 DGRID_IN_STEP = WARP_IN_PATH
 DSRC_IN_STEP = (False, True, True, True, True, True, False)
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM, NVIDIA data sheet
 F32_FLOPS = 67e12  # H100 SXM f32 outside the tensor cores
 
 
@@ -272,6 +265,8 @@ def cold_copies(nbytes: int) -> int:
 def bound_ms(nbytes: float, flops: float):
     """(least time in ms, what bounds it) for moving `nbytes` through HBM and
     doing `flops` f32 operations."""
+    from benchmarks.kernels import HBM_BYTES_PER_S
+
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / F32_FLOPS * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
@@ -4172,176 +4167,10 @@ def vox_full_phase(smi: str, device="cuda") -> dict:
     return result
 
 
-# ---- phase 11 ----------------------------------------------------------------
-
-def layer_conv_flops(models, fn) -> int:
-    """FLOPs of the convolutions that fn() runs in the Conv3D layers of
-    `models`, from each call's shapes: the forward 2 x N x Ho x Wo x Cout x
-    Cin / groups x kh x kw; and where the layer's output receives a
-    gradient, its input's gradient as much again where the input requires
-    one, and its weight's gradient `groups` times as much where the weight
-    requires one (the rule FlopCounterMode applies to
-    aten.convolution_backward; a bias's gradient counts nothing)."""
-    from monkeynet_tpu_torch.models.blocks import Conv3D
-
-    total = [0]
-
-    def hook(module, inputs, out):
-        x = inputs[0]
-        B, D, _, _, cin = x.shape
-        _, _, ho, wo, cout = out.shape
-        kh, kw = module.weight.shape[-2:]
-        forward = 2 * B * D * ho * wo * cout * (cin // module.groups) * kh * kw
-        total[0] += forward
-        if out.requires_grad:
-            backward = forward * (int(x.requires_grad)
-                                  + module.groups * int(module.weight.requires_grad))
-
-            def on_grad(grad, backward=backward):
-                total[0] += backward
-
-            out.register_hook(on_grad)
-
-    handles = [m.register_forward_hook(hook) for model in models for m in model.modules()
-               if isinstance(m, Conv3D)]
-    try:
-        fn()
-    finally:
-        for h in handles:
-            h.remove()
-    return total[0]
-
-
-BENCH_TIMEOUT_S = 600
-BENCH_FRAMES = 512  # monkeynet_tpu_torch/bench.py's N_FRAMES, bench.py's
-# bench.py's line: its keys, and every key of its `extra`
-BENCH_LINE_KEYS = ("metric", "value", "unit", "vs_baseline", "extra")
-BENCH_EXTRA_KEYS = (
-    "device_kind", "train_steps_per_sec_taichi_b32", "train_spread_pct",
-    "sustained_steps_per_sec_actions", "sustained_loop_steps",
-    "sustained_wall_seconds_incl_compile", "fps_median", "spread_pct", "n_runs",
-    "compile_seconds", "compile_cache", "transfer_gflop_per_frame_measured",
-    "transfer_mfu_vs_bf16_peak", "train_hw_gflop_per_step_executed",
-    "train_hw_mfu_vs_bf16_peak", "train_gflop_per_step_measured", "train_mfu_vs_bf16_peak",
-)
-LOADER_LINE = re.compile(r"^loader: (\S+) batches/s \((\S+) items/s\) at batch_size=(\d+) "
-                         r"workers=(\d+) \((\S+) ms/batch\)$")
-
-
-def bench_flops(config, device="cuda") -> dict:
-    """The conv FLOPs of the bench's two counted calls, from the layers'
-    shapes (`layer_conv_flops`), on configs/taichi.yaml's networks (random
-    weights: the count depends on shapes alone): a first transfer chunk
-    (the source and CHUNK driving frames at 64^2, bf16) per frame, and one
-    eager train step at batch 32 (the config's bf16)."""
-    import torch
-
-    from monkeynet_tpu_torch.tasks.animate import TransferEngine
-    from monkeynet_tpu_torch.tasks.build import build_models, build_train_models
-    from monkeynet_tpu_torch.tasks.train import Trainer
-
-    generator, kp_detector = build_models(config, device=device, seed=SEED)
-    engine = TransferEngine(generator, kp_detector, chunk=CHUNK, dtype=torch.bfloat16,
-                            device=device)
-    gen = torch.Generator().manual_seed(SEED + 21)
-    source = torch.rand(1, 1, HW, HW, 3, generator=gen).to(device)
-    driving = torch.rand(1, CHUNK, HW, HW, 3, generator=gen).to(device)
-    per_frame = layer_conv_flops([engine.generator, engine.kp_detector],
-                                 lambda: engine(source, driving)) / CHUNK
-    del engine, generator, kp_detector
-    models = build_train_models(config, device=device, seed=SEED)
-    trainer = Trainer(models, config["train_params"], device=device, steps_per_epoch=100)
-    batch = {k: torch.rand(TRAIN_BATCH, 1, HW, HW, 3, generator=gen).to(device)
-             for k in ("source", "video")}
-    per_step = layer_conv_flops(list(models.values()), lambda: trainer.step(batch))
-    del trainer, models
-    torch.cuda.empty_cache()
-    return {"transfer_flops_per_frame": per_frame, "train_flops_per_step": per_step}
-
-
-def _bench_cli(args, timeout: int) -> subprocess.CompletedProcess:
-    proc = subprocess.run([sys.executable, "-m", "monkeynet_tpu_torch.bench", *args], cwd=REPO,
-                          capture_output=True, text=True, timeout=timeout)
-    if proc.returncode != 0:
-        raise RuntimeError(f"python -m monkeynet_tpu_torch.bench {' '.join(args)} exited "
-                           f"{proc.returncode}: {proc.stderr[-4000:]}")
-    return proc
-
-
-def bench_phase(config, smi: str, device="cuda") -> dict:
-    """Phase 11: `python -m monkeynet_tpu_torch.bench` in a process of its
-    own (its own timeout), then its `loader` mode on configs/actions.yaml.
-    The bench's last line must hold every key of bench.py's line, finite
-    rates above 0 and MFUs where the card has a peak, the card's name, each
-    kernel's launches per transfer pass of 512 frames as
-    `expected_launches` gives them (both dtypes), and per train step and in
-    the captured step TRAIN_STEP_LAUNCHES; its FLOP counts must equal
-    `bench_flops`'s, computed here from the layers' shapes."""
-    import torch
-
-    torch.cuda.empty_cache()
-    t0 = time.perf_counter()
-    proc = _bench_cli([], BENCH_TIMEOUT_S)
-    bench_s = time.perf_counter() - t0
-    line = json.loads(proc.stdout.strip().splitlines()[-1])
-    log(line)
-    if tuple(line) != BENCH_LINE_KEYS:
-        raise AssertionError(f"bench: keys {list(line)}, want {list(BENCH_LINE_KEYS)}")
-    extra = line["extra"]
-    missing = [k for k in BENCH_EXTRA_KEYS if k not in extra]
-    if missing:
-        raise AssertionError(f"bench: extra lacks {missing}")
-    if (line["metric"], line["unit"]) != ("transfer_frames_per_sec_per_chip_taichi64",
-                                          "frames/s"):
-        raise AssertionError(f"bench: metric {line['metric']!r}, unit {line['unit']!r}")
-    if extra["device_kind"] != torch.cuda.get_device_name(0):
-        raise AssertionError(f"bench: device_kind {extra['device_kind']!r} on "
-                             f"{torch.cuda.get_device_name(0)!r}")
-    rates = {"value": line["value"], "vs_baseline": line["vs_baseline"],
-             **{k: extra[k] for k in ("fps_median", "train_steps_per_sec_taichi_b32",
-                                      "sustained_steps_per_sec_actions",
-                                      "train_eager_steps_per_sec",
-                                      "transfer_gflop_per_frame_measured",
-                                      "train_gflop_per_step_measured")},
-             "f32 fps": extra["transfer_f32"]["fps"]}
-    if extra["peak_flops_bf16"] is not None:
-        rates.update({k: extra[k] for k in ("transfer_mfu_vs_bf16_peak", "train_mfu_vs_bf16_peak",
-                                            "train_hw_mfu_vs_bf16_peak")})
-    bad = {k: v for k, v in rates.items() if not (isinstance(v, (int, float))
-                                                   and math.isfinite(v) and v > 0)}
-    if bad:
-        raise AssertionError(f"bench: rates not finite and above 0: {bad}")
-    want = expected_launches(config, BENCH_FRAMES, CHUNK)
-    for label, got in (("bf16", extra["transfer_launches_per_pass"]),
-                       ("f32", extra["transfer_f32"]["launches_per_pass"])):
-        if got != want:
-            raise AssertionError(f"bench transfer {label}: launches a pass {got} != {want}")
-    for label in ("train_launches_per_step", "train_captured_launches"):
-        if extra[label] != TRAIN_STEP_LAUNCHES:
-            raise AssertionError(f"bench: {label} {extra[label]} != {TRAIN_STEP_LAUNCHES}")
-    flops = bench_flops(config, device)
-    for key, value in flops.items():
-        if extra[key] != value:
-            raise AssertionError(f"bench: {key} {extra[key]} != {value} from the layers' shapes")
-    t0 = time.perf_counter()
-    loader = _bench_cli(["loader", "--config", "configs/actions.yaml", "--batches", "50",
-                         "--workers", "4"], 300).stdout.strip().splitlines()[-1]
-    loader_s = time.perf_counter() - t0
-    log(loader)
-    m = LOADER_LINE.match(loader)
-    if not m or not all(float(v) > 0 for v in m.groups()):
-        raise AssertionError(f"bench loader: {loader!r}")
-    result = {"phase": "bench", "bench_s": bench_s, "loader_s": loader_s,
-              "layer_flops": flops, "card": smi,
-              "launches": {"transfer_pass": want, "train_step": TRAIN_STEP_LAUNCHES}}
-    log(result)
-    return result
-
-
 def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                  loop_launches: dict, eval_launches: dict, actions_launches: dict,
-                 sharded_launches: dict, jaxckpt_launches: dict, vox_full_launches: dict,
-                 bench_launches: dict) -> dict:
+                 sharded_launches: dict, jaxckpt_launches: dict,
+                 vox_full_launches: dict) -> dict:
     """One row per kernel. `launches` is the count of the path that runs the
     kernel: the 256-frame transfer for the four forward kernels, the ten
     timed train steps for d_src and d_grid; every path's counts are also
@@ -4352,8 +4181,7 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
     `parallel_launches`: phase 8's paths, `parallel_launches` above;
     `jaxckpt_launches`: phase 9's reconstruction and resumed train() from
     each JAX package file; `vox_full_launches`: phase 10's bf16 transfer of
-    64 frames in chunks of 32 on configs/vox-full.yaml; `bench_launches`:
-    phase 11's bench, a transfer pass of 512 frames and a train step).
+    64 frames in chunks of 32 on configs/vox-full.yaml).
     Times are per transfer chunk (forward kernels)
     and per train step (d_src, d_grid; the warp's `train` entry), summed over
     the calls the path makes; the warp's `ms_seven_shapes` adds the seventh
@@ -4392,9 +4220,7 @@ def kernels_line(summary: dict, transfer_launches: dict, train_launches: dict,
                                      for path, launches in sharded_launches.items()},
                "jaxckpt_launches": {path: launches[name]
                                     for path, launches in jaxckpt_launches.items()},
-               "vox_full_launches": vox_full_launches[name],
-               "bench_launches": {path: launches[name]
-                                  for path, launches in bench_launches.items()}}
+               "vox_full_launches": vox_full_launches[name]}
         if f"{key}_bf16" in summary:
             row["bf16"] = numbers(summary[f"{key}_bf16"])
         if name == "warp":
@@ -4433,7 +4259,7 @@ def full_f32() -> None:
 
 
 PHASES = ("kernels", "parity", "main", "loop", "dispatch", "parallel", "jaxckpt",
-          "vox_full", "bench")
+          "vox_full")
 
 
 def main(argv=None) -> int:
@@ -4480,7 +4306,6 @@ def main(argv=None) -> int:
             "parallel": lambda work: parallel_launches(parallel_phase(work, smi)),
             "jaxckpt": lambda work: jaxckpt_phase(work, smi),
             "vox_full": lambda work: vox_full_phase(smi),
-            "bench": lambda work: bench_phase(config, smi),
         }
         for name in only:
             with tempfile.TemporaryDirectory(prefix="monkeynet_smoke_") as work:
@@ -4526,16 +4351,13 @@ def main(argv=None) -> int:
     lap("jaxckpt")
     vox_full = vox_full_phase(smi)
     lap("vox_full")
-    bench = bench_phase(config, smi)
-    lap("bench")
     log({"phase": "seconds", **seconds})
     # every run of a path launched the same counts (checked above); report the
     # bf16 runs' counts, the setting both the benchmark and the config use
     print(json.dumps(kernels_line(summary, runs[0]["launches"], train_runs[0]["launches"],
                                   loop["launches"], evals["eval_launches"],
                                   dispatch["actions"]["launches"], sharded,
-                                  jaxckpt["launches"], vox_full["launches"],
-                                  bench["launches"])), flush=True)
+                                  jaxckpt["launches"], vox_full["launches"])), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

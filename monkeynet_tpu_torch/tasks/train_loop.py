@@ -94,12 +94,7 @@ class TrainRun:
     step's end, synchronised), and the seconds it waited on the feeder.
     Then how it ran: the steps a dispatch, whether the device feed ran, its
     cache's bytes on the card and the seconds it took to build them (decode
-    and copy), and the last step's losses (in `metric_names` order).
-    `first_chunk_s`: the loop's seconds from its start to the end of its
-    first chunk of `steps_per_dispatch` steps, synchronised; that chunk
-    holds the first dispatch's set-up (the eager warm-up steps and the
-    capture of the step's graph), so the steps after it over the wall after
-    it are the loop's sustained rate (`monkeynet_tpu_torch/bench.py`)."""
+    and copy), and the last step's losses (in `metric_names` order)."""
 
     trainer: Trainer
     epochs: List[int]
@@ -111,7 +106,6 @@ class TrainRun:
     cache_bytes: int = 0
     cache_s: float = 0.0
     last_metrics: Optional[torch.Tensor] = None
-    first_chunk_s: Optional[float] = None
 
 
 def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
@@ -204,7 +198,7 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
     log_params = dict(train_params.get("log_params", {}))
     chunks = DevicePrefetch(_chunked(stream, k, keys), device, keys=keys)
     profiler = None
-    epochs, steps, last_metrics, first_chunk_s = [], 0, None, None
+    epochs, steps, last_metrics = [], 0, None
     t0 = time.perf_counter()
     with Logger(log_dir=log_dir, visualizer_params=config.get("visualizer_params"),
                 write=rank == 0, **log_params) as logger:
@@ -248,10 +242,6 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
                     with span("loop.checkpoint"):
                         logger.log_epoch(finished, payload, prev_epoch=last_finished)
                     last_finished = finished
-            if first_chunk_s is None:
-                if device.type == "cuda":
-                    torch.cuda.synchronize(device)
-                first_chunk_s = time.perf_counter() - t0
         if profiler is not None:  # the run ended inside the profiled steps
             _stop_profiler(profiler, device, profile_dir)
         if device.type == "cuda":
@@ -261,7 +251,7 @@ def train(config, log_dir, dataset, checkpoint=None, seed=0, num_devices=1,
         dist.barrier(group=group)
     return TrainRun(trainer, epochs, steps, wall_s, chunks.wait_s, steps_per_dispatch=k,
                     device_feed=feed is not None, cache_bytes=cache_bytes, cache_s=cache_s,
-                    last_metrics=last_metrics, first_chunk_s=first_chunk_s)
+                    last_metrics=last_metrics)
 
 
 def _train_rank(rank, world, device, config, log_dir, dataset, checkpoint, seed, profile_dir):

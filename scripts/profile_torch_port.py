@@ -17,8 +17,8 @@ config's dataset where the config sets `device_feed`, else uint8 batches
 made on the card (`--dtype` does not apply). The trace comes from
 torch.profiler (CPU and CUDA activities). Prints one JSON object: the top
 kernels by device time, device time grouped by kind (convolution, the port's
-kernels, elementwise, ...), and the device's busy share of the traced
-window. Needs one CUDA card; exits non-zero if the trace holds no device
+kernels, elementwise, ...: the kinds of benchmarks/kernels.py, which the
+benchmark's readers use), and the device's busy share of the traced window. Needs one CUDA card; exits non-zero if the trace holds no device
 time.
 """
 
@@ -26,7 +26,6 @@ from __future__ import annotations
 
 import argparse
 import json
-import re
 import subprocess
 import sys
 import time
@@ -35,61 +34,31 @@ from pathlib import Path
 
 REPO = Path(__file__).resolve().parents[1]
 
-# kind -> pattern on the kernel's name; the first match wins
-KINDS = (
-    ("port_kernels", r"warp_fwd_kernel|warp_dsrc_kernel|warp_dgrid_kernel|combine_kernel"
-                     r"|softargmax_staged_kernel|softargmax_plane_kernel|heatmap_kernel"),
-    ("convolution", r"conv|xmma|fprop|implicit|cudnn|wgrad|dgrad|winograd|nhwc|nchw"),
-    ("matmul", r"gemm|cutlass|bmm|matmul"),
-    ("optimizer", r"multi_tensor|foreach|adam"),
-    ("batch_norm_and_elementwise", r"elementwise|vectorized|unrolled|where|clamp|pow|exp"),
-    ("reduction", r"reduce|softmax|norm"),
-    ("copy_cat_index", r"copy|cat|index|gather|memcpy|memset|fill"),
-)
-
-
-def kind_of(name: str) -> str:
-    low = name.lower()
-    for kind, pattern in KINDS:
-        if re.search(pattern, low):
-            return kind
-    return "other"
-
-
-def union_us(intervals) -> float:
-    total, end = 0.0, float("-inf")
-    for s, e in sorted(intervals):
-        if s > end:
-            total += e - s
-            end = e
-        elif e > end:
-            total += e - end
-            end = e
-    return total
-
 
 def summarize(device_events, wall_us: float) -> dict:
     """device_events: (name, start_us, end_us) of every device activity."""
+    from benchmarks import kernels, trace
+
     by_name = defaultdict(lambda: [0.0, 0])
     by_kind = defaultdict(float)
     for name, s, e in device_events:
         by_name[name][0] += e - s
         by_name[name][1] += 1
-        by_kind[kind_of(name)] += e - s
+        by_kind[kernels.kind_of(name)] += e - s
     total = sum(v[0] for v in by_name.values())
     start = min(s for _, s, _ in device_events)
     stop = max(e for _, _, e in device_events)
-    busy = union_us([(s, e) for _, s, e in device_events])
+    busy = trace.union([(s, e) for _, s, e in device_events])
     top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:20]
     # the port's own kernels, each with its time inside this run: what a
     # kernel takes where the path calls it, beside chip_smoke.py's times of
     # the same kernel alone
     port = defaultdict(lambda: [0.0, 0])
     for name, (us, calls) in by_name.items():
-        match = re.search(KINDS[0][1], name)
-        if match:
-            port[match.group(0)][0] += us
-            port[match.group(0)][1] += calls
+        kernel = kernels.port_kernel(name)
+        if kernel:
+            port[kernel][0] += us
+            port[kernel][1] += calls
     return {
         "device_time_us": total,
         "device_window_us": stop - start,

@@ -1,7 +1,7 @@
 """The port's numpy draw of flax's init (monkeynet_tpu_torch/utils/flax_init.py)
 against jax.random and flax themselves.
 
-(a) The PRNG: `prng_key`, `fold_in`, `split`, `random_bits` and `uniform`
+(a) The PRNG: `prng_key`, `fold_in`, `random_bits` and `uniform`
     against jax.random on a few keys, in the mode the installed JAX runs
     (threefry2x32 with `jax_threefry_partitionable`, JAX 0.9's default,
     asserted), and `fold_in_static` against flax's `_fold_in_static`.
@@ -48,9 +48,6 @@ def test_prng_matches_jax_random(seed):
     for data in (0, 1, 7, 123_456_789, 2**32 - 1):
         np.testing.assert_array_equal(np.asarray(jax.random.fold_in(key, data)),
                                       flax_init.fold_in(mine, data))
-    for num in (2, 5):
-        np.testing.assert_array_equal(np.asarray(jax.random.split(key, num)),
-                                      flax_init.split(mine, num))
     np.testing.assert_array_equal(np.asarray(jax.random.bits(key, (3, 7), jnp.uint32)),
                                   flax_init.random_bits(mine, (3, 7)))
     # bounds whose width rounds: the fused multiply-add decides the last bit
