@@ -23,6 +23,15 @@ exactly 0 in eval and in training. The padded weights are derived from the
 parameters at the call (`_carry`), never stored: parameters, buffers and
 state_dict keep the reference's shapes. Which activations are carried
 follows from the widths a module is built with alone.
+
+Eval batch norms. In eval a batch norm is a per-channel affine, x * scale +
+shift (`SyncBatchNorm.affine`, computed in f32). Where the affine is kept
+(`_keeps`: eval, no autograd, no CUDA-graph capture), a norm that reads a
+conv's output and nothing else (`Conv3D(x, norm)`) runs folded into that
+conv: weight rows times scale, bias (b - mean) * scale + beta, no pass of
+its own; a norm with no conv before it (`ResBlock.norm1`, after the
+residual sum) runs as one multiply-add. Training, remat's recompute and a
+captured step compute the norm as the reference does.
 """
 
 from __future__ import annotations
@@ -57,31 +66,45 @@ def cat_carried(parts: Sequence[torch.Tensor], width: int) -> torch.Tensor:
     return torch.cat(parts, dim=-1)
 
 
-def _carry(module: nn.Module, sources: Sequence[torch.Tensor], make):
-    """make(): the module's tensors padded to its carried width. Made at the
-    call where autograd or a CUDA-graph capture may see them (a training
-    forward pads inside the graph, and autograd slices the gradient back);
-    in eval without autograd made once and kept until one of `sources`
-    changes in place or is replaced (its storage or version), or the module
-    is moved or cast (`_apply`)."""
-    if (module.training or torch.is_grad_enabled()
-            or (sources[0].is_cuda and torch.cuda.is_current_stream_capturing())):
+def _keeps(module: nn.Module, t: torch.Tensor) -> bool:
+    """Whether tensors made from `module`'s parameters (on `t`'s device) may
+    be kept between calls: in eval, without autograd, outside a CUDA-graph
+    capture."""
+    return not (module.training or torch.is_grad_enabled()
+                or (t.is_cuda and torch.cuda.is_current_stream_capturing()))
+
+
+def _carry(module: nn.Module, sources: Sequence[torch.Tensor], make,
+           slot: str = "_carry", tag=None):
+    """make(): tensors derived from the module's `sources`, such as its
+    padded weights. Made at the call where autograd or a CUDA-graph capture
+    may see them (a training forward pads inside the graph, and autograd
+    slices the gradient back); where `_keeps`, made once and kept in `slot`
+    until one of `sources` changes in place or is replaced (its storage or
+    version), `tag` (a dtype) changes, or the module is moved or cast
+    (`_apply`)."""
+    if not _keeps(module, sources[0]):
         return make()
-    key = tuple((t.data_ptr(), t._version) for t in sources)
-    if module._carry_key != key:
-        module._carry, module._carry_key = make(), key
-    return module._carry
+    key = (tag, *((t.data_ptr(), t._version) for t in sources))
+    if getattr(module, slot + "_key") != key:
+        setattr(module, slot, make())
+        setattr(module, slot + "_key", key)
+    return getattr(module, slot)
 
 
 class _Carrying(nn.Module):
-    """A module whose padded tensors `_carry` keeps between eval calls."""
+    """A module whose derived tensors `_carry` keeps between eval calls: its
+    padded tensors (`_carry`) and a conv's folded weights (`_fold`)."""
 
     def __init__(self):
         super().__init__()
-        self._carry = self._carry_key = None
+        self._forget()
+
+    def _forget(self):
+        self._carry = self._carry_key = self._fold = self._fold_key = None
 
     def _apply(self, fn, recurse=True):
-        self._carry = self._carry_key = None
+        self._forget()
         return super()._apply(fn, recurse)
 
 
@@ -139,10 +162,26 @@ class Conv3D(_Carrying):
         weight = F.pad(self.weight, (0, 0, 0, 0, 0, 0, 0, pad_in, 0, pad_out))
         return weight, (F.pad(self.bias, (0, pad_out)) if pad_out else self.bias)
 
-    def forward(self, x):
+    def _folded(self, norm: "SyncBatchNorm"):
+        """The padded weight and bias with `norm`'s eval affine folded in:
+        each output row times its scale, the bias (b - mean) * scale + beta;
+        computed in f32, kept in the parameters' dtype."""
+        scale, shift = norm.affine()
+        weight, bias = self._padded()
+        return ((weight.float() * scale[:, None, None, None, None]).to(weight.dtype),
+                (bias.float() * scale + shift).to(bias.dtype))
+
+    def forward(self, x, norm: Optional["SyncBatchNorm"] = None):
+        """The conv of `x`; with `norm`, norm(conv(x)), where nothing else
+        reads the conv's output: folded into the conv's weight and bias
+        where the eval affine is kept (`_keeps`)."""
         B, D, H, W, C = x.shape
         weight, bias = self.weight, self.bias
-        if self._pad != (0, 0):
+        fold = norm is not None and not norm.training and _keeps(self, weight)
+        if fold:
+            weight, bias = _carry(self, (weight, bias, *norm.statistics()),
+                                  lambda: self._folded(norm), "_fold")
+        elif self._pad != (0, 0):
             weight, bias = _carry(self, (weight, bias), self._padded)
         y = F.conv2d(
             x.reshape(B * D, H, W, C).permute(0, 3, 1, 2),
@@ -152,7 +191,8 @@ class Conv3D(_Carrying):
             groups=self.groups,
         )
         y = y.permute(0, 2, 3, 1)
-        return y.reshape(B, D, y.shape[1], y.shape[2], y.shape[3])
+        y = y.reshape(B, D, y.shape[1], y.shape[2], y.shape[3])
+        return y if norm is None or fold else norm(y)
 
 
 class SyncBatchNorm(_Carrying):
@@ -202,6 +242,18 @@ class SyncBatchNorm(_Carrying):
             self.running_var.fill_(1.0)
             self.num_batches_tracked.zero_()
 
+    def statistics(self):
+        """The tensors the eval affine is made from."""
+        return self.weight, self.bias, self.running_mean, self.running_var
+
+    def affine(self):
+        """The eval norm as x * scale + shift: (scale, shift) in f32 at the
+        carried width, zeros past `features`."""
+        scale = self.weight.float() * torch.rsqrt(self.running_var.float() + self.eps)
+        shift = self.bias.float() - self.running_mean.float() * scale
+        pad = (0, self.carried - self.features)
+        return F.pad(scale, pad), F.pad(shift, pad)
+
     def _padded(self):
         pad = (0, self.carried - self.features)
         weight, bias = F.pad(self.weight, pad), F.pad(self.bias, pad)
@@ -211,11 +263,15 @@ class SyncBatchNorm(_Carrying):
                 F.pad(self.running_var, pad, value=1.0))
 
     def forward(self, x):
+        if not self.training and _keeps(self, x):
+            scale, shift = _carry(
+                self, self.statistics(),
+                lambda: tuple(t.to(x.dtype) for t in self.affine()), tag=x.dtype)
+            return torch.addcmul(shift, x, scale)
         weight, bias = self.weight, self.bias
         running_mean, running_var = self.running_mean, self.running_var
         if self.carried != self.features:
-            weight, bias, running_mean, running_var = _carry(
-                self, (weight, bias, running_mean, running_var), self._padded)
+            weight, bias, running_mean, running_var = self._padded()
         if not self.training:
             mean, var = running_mean, running_var
         else:
@@ -306,7 +362,7 @@ class DownBlock(nn.Module):
         self.norm = SyncBatchNorm(out_features)
 
     def forward(self, x):
-        return avg_pool_2x2(F.relu(self.norm(self.conv(x))))
+        return avg_pool_2x2(F.relu(self.conv(x, self.norm)))
 
 
 class UpBlock(nn.Module):
@@ -322,7 +378,7 @@ class UpBlock(nn.Module):
     def forward(self, x):
         H, W = x.shape[-3], x.shape[-2]
         x = resize_nearest(x, (2 * H, 2 * W))
-        return F.relu(self.norm(self.conv(x)))
+        return F.relu(self.conv(x, self.norm))
 
 
 class SameBlock(nn.Module):
@@ -335,12 +391,13 @@ class SameBlock(nn.Module):
         self.norm = SyncBatchNorm(out_features)
 
     def forward(self, x):
-        return F.relu(self.norm(self.conv(x)))
+        return F.relu(self.conv(x, self.norm))
 
 
 class ResBlock(nn.Module):
     """Pre-activation residual block: (BN-relu-conv) x2 + skip, in and out
-    at the width `carried` (zeros past `features`)."""
+    at the width `carried` (zeros past `features`). norm2 reads conv1's
+    output alone, so it folds into conv1; norm1 reads the residual sum."""
 
     def __init__(self, features: int, carried: Optional[int] = None):
         super().__init__()
@@ -350,8 +407,8 @@ class ResBlock(nn.Module):
         self.conv2 = Conv3D(features, features, carried_in=carried, carried_out=carried)
 
     def forward(self, x):
-        out = self.conv1(F.relu(self.norm1(x)))
-        out = self.conv2(F.relu(self.norm2(out)))
+        out = self.conv1(F.relu(self.norm1(x)), self.norm2)
+        out = self.conv2(F.relu(out))
         return out + x
 
 
